@@ -11,8 +11,10 @@ worker imports torch, numpy and this package only.
 Tasks:
 
 * ``"halo"``: `update_halo(*fields, width=...)` on the named fields.
-* ``"multi_step"``: ``diffusion3d.make_multi_step(params, nsteps, ...)`` on
-  ``(T, Cp)``.
+* ``"multi_step"``, ``"acoustic"``, ``"porous"``: ``make_multi_step(params,
+  nsteps, ...)`` of ``diffusion3d`` on ``(T, Cp)``, of ``acoustic3d`` on
+  ``(P, Vx, Vy, Vz)``, of ``porous_convection3d`` on ``(T, Pf, qDx, qDy,
+  qDz)``; every field of the final state is saved.
 
 Run one rank by hand with ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json`` and the environment variables above set.
@@ -104,8 +106,14 @@ def _run(task: dict) -> dict:
     import torch
 
     from . import finalize_global_grid, init_global_grid, update_halo
-    from .models import diffusion3d
+    from .models import acoustic3d, diffusion3d, porous_convection3d
     from .utils.fields import block_from_numpy
+
+    models = {
+        "multi_step": (diffusion3d, ("T", "Cp")),
+        "acoustic": (acoustic3d, ("P", "Vx", "Vy", "Vz")),
+        "porous": (porous_convection3d, ("T", "Pf", "qDx", "qDy", "qDz")),
+    }
 
     dtypes = {"float32": torch.float32, "float64": torch.float64}
     workdir = Path(task["workdir"])
@@ -119,14 +127,14 @@ def _run(task: dict) -> dict:
             ]
             update_halo(*fields, width=task.get("width", 1))
             return {name: A.numpy() for name, A in zip(task["fields"], fields)}
-        if task["kind"] == "multi_step":
+        if task["kind"] in models:
+            model, names = models[task["kind"]]
             kw = dict(task["params"])
             kw["dtype"] = dtypes[kw["dtype"]]
-            params = diffusion3d.Params(**kw)
-            T, Cp = diffusion3d.state_from_numpy(inputs["T"], inputs["Cp"])
-            step = diffusion3d.make_multi_step(params, task["nsteps"], **task.get("step", {}))
-            T, Cp = step(T, Cp)
-            return {"T": T.numpy()}
+            params = model.Params(**kw)
+            state = model.state_from_numpy(*(inputs[n] for n in names))
+            state = model.make_multi_step(params, task["nsteps"], **task.get("step", {}))(*state)
+            return {n: a.numpy() for n, a in zip(names, state)}
         raise ValueError(f"unknown task kind {task['kind']!r}")
     finally:
         finalize_global_grid()

@@ -26,19 +26,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 
 from ..ops.fused_stencil import fused_diffusion_steps
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
-from ..parallel.grid import (
-    finalize_global_grid,
-    global_grid,
-    grid_is_initialized,
-    init_global_grid,
-)
+from ..parallel.grid import global_grid, init_global_grid
 from ..utils.fields import block_from_numpy, coord_fields, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
+from . import _common
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +57,7 @@ def params_from(other) -> Params:
     """A `Params` from any object with the same field names — e.g. the JAX
     package's ``diffusion3d.Params`` (its numpy/JAX dtype becomes the
     matching torch dtype)."""
-    kw = {f.name: getattr(other, f.name) for f in dataclasses.fields(Params)}
-    if kw["dtype"] is not None and not isinstance(kw["dtype"], torch.dtype):
-        kw["dtype"] = torch.from_numpy(np.zeros(0, np.dtype(kw["dtype"]))).dtype
-    return Params(**kw)
+    return _common.params_from(Params, other)
 
 
 def state_from_numpy(T, Cp, *, coords=None, device=None):
@@ -75,13 +67,6 @@ def state_from_numpy(T, Cp, *, coords=None, device=None):
     return (
         block_from_numpy(T, coords=coords, device=device),
         block_from_numpy(Cp, coords=coords, device=device),
-    )
-
-
-def _later(what: str, where: str):
-    raise NotImplementedError(
-        f"{what} is not in the port yet; it comes with a later slice "
-        f"(ROADMAP.md Queue A item {where})."
     )
 
 
@@ -124,7 +109,7 @@ def setup(
     anomaly.
     """
     if hide_comm:
-        _later("hide_comm", "9")
+        _common.later("hide_comm", "9")
     if init_grid:
         init_global_grid(nx, ny, nz, **grid_kwargs)
     if dtype is None:
@@ -170,9 +155,9 @@ def _diffusion_update(params: Params):
 def make_step(params: Params, *, batch: bool = False):
     """One time step ``(T, Cp) -> (T, Cp)``: stencil update + halo exchange."""
     if batch:
-        _later("batch=True", "10")
+        _common.later("batch=True", "10")
     if params.hide_comm:
-        _later("hide_comm", "9")
+        _common.later("hide_comm", "9")
     update = _diffusion_update(params)
 
     def step(T, Cp):
@@ -209,13 +194,13 @@ def make_multi_step(
     slices and raise `NotImplementedError`.
     """
     if batch:
-        _later("batch=True", "10")
+        _common.later("batch=True", "10")
     if autotune:
-        _later("autotune", "15")
+        _common.later("autotune", "15")
     if pipelined:
-        _later("pipelined=True", "9")
+        _common.later("pipelined=True", "9")
     if params.hide_comm:
-        _later("hide_comm", "9")
+        _common.later("hide_comm", "9")
     update = _diffusion_update(params)
     gg = global_grid()
 
@@ -266,24 +251,10 @@ def make_multi_step(
 def run(nt: int, nx: int = 128, ny: int = 128, nz: int = 128, *,
         finalize: bool = True, **setup_kwargs):
     """End-to-end run (the reference's ``diffusion3D()`` without
-    visualization): ``nt`` steps of `make_step`; returns this rank's final T."""
-    caller_owns_grid = grid_is_initialized()
-    try:
-        (T, Cp), params = setup(nx, ny, nz, **setup_kwargs)
-        step = make_step(params)
-        for _ in range(nt):
-            T, Cp = step(T, Cp)
-        if T.is_cuda:
-            torch.cuda.synchronize(T.device)
-    except BaseException:
-        # A failed run must not leave the grid initialized — unless the
-        # caller set it up.
-        if not caller_owns_grid and grid_is_initialized():
-            finalize_global_grid()
-        raise
-    if finalize:
-        finalize_global_grid()
-    return T
+    visualization): ``nt`` steps of `make_step`; returns this rank's final T.
+    The JAX package's resilience hooks (``guard_every``, ``checkpoint_*``,
+    ...) come with a later slice and raise `NotImplementedError`."""
+    return _common.run(setup, make_step, nt, (nx, ny, nz), finalize, setup_kwargs)
 
 
 def temperature(state):

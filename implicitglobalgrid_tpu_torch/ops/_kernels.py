@@ -3,9 +3,9 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with `ctypes`; pointers and the
 stream travel as ``c_void_p``.  Libraries live in ``_build/`` next to the
-package, named by a hash of the source and the flags, so a stale library is
-never loaded.  A failed build raises with ``nvcc``'s output: nothing here
-falls back to a plain PyTorch path.
+package, named by a hash of the source, the headers it may include and the
+flags, so a stale library is never loaded.  A failed build raises with
+``nvcc``'s output: nothing here falls back to a plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -52,9 +52,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -90,6 +94,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+_entries: dict = {}
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (it returns a
+    ``cudaError_t``), with its ctypes signature set once."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _entries[(name, symbol)] = fn
+    return fn
 
 
 def check(name: str, code: int, what: str) -> None:

@@ -75,21 +75,14 @@ def fused_diffusion_steps_reference(T, Cp, k: int, cx: float, cy: float, cz: flo
     return T
 
 
-_entries: dict = {}
-
-
 def _entry(dtype):
-    """The kernel's C entry for ``dtype``, its ctypes signature set once."""
-    fn = _entries.get(dtype)
-    if fn is None:
-        suffix, cfloat = _DTYPES[dtype]
-        fn = getattr(_kernels.load("fused_diffusion"), f"igg_fused_diffusion_{suffix}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [cfloat] * 3 + [
-            ctypes.c_int
-        ] * 3 + [ctypes.c_void_p]
-        _entries[dtype] = fn
-    return fn
+    """The kernel's C entry for ``dtype``."""
+    suffix, cfloat = _DTYPES[dtype]
+    return _kernels.entry(
+        "fused_diffusion", f"igg_fused_diffusion_{suffix}",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [cfloat] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p],
+    )
 
 
 def _validate(T, Cp, k):

@@ -1,0 +1,235 @@
+"""The PyTorch port's porous-convection model against the JAX package's.
+
+Both packages start from bit-identical inputs: the JAX state goes through
+`state_from_numpy` into the port.  Tolerances: float64 1e-12 relative to
+each field's scale (at least 1), float32 four ULPs of that scale (torch and
+XLA round the same expressions differently in the last bit), and the fused
+cadence max |diff|
+/ max(scale, 1) < 2e-5 (the JAX package's kernel-vs-XLA tolerance,
+`tests/test_pallas_pt.py`).  Initial conditions: float64 within 4 ULPs of the
+field's scale, float32 within 2 ULPs.
+"""
+
+import itertools
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import implicitglobalgrid_tpu as jigg
+import implicitglobalgrid_tpu_torch as tigg
+from implicitglobalgrid_tpu.models import porous_convection3d as jpc
+from implicitglobalgrid_tpu.utils.compat import pallas_force_interpret
+from implicitglobalgrid_tpu_torch._workers import spawn
+from implicitglobalgrid_tpu_torch.models import porous_convection3d as tpc
+from implicitglobalgrid_tpu_torch.ops import fused_pt as fp
+
+DT = {np.float32: (jnp.float32, torch.float32), np.float64: (jnp.float64, torch.float64)}
+NAMES = ("T", "Pf", "qDx", "qDy", "qDz")
+
+
+@pytest.fixture(autouse=True)
+def _finalize_torch_grid():
+    yield
+    if tigg.grid_is_initialized():
+        tigg.finalize_global_grid()
+
+
+def _setup_both(nxyz, dtype, ndev=1, **kw):
+    state, jparams = jpc.setup(*nxyz, dtype=DT[dtype][0], quiet=True,
+                               devices=jax.devices()[:ndev], **kw)
+    return tuple(np.asarray(a) for a in state), jparams
+
+
+def _scale(w):
+    return max(float(np.abs(w).max()), 1.0)
+
+
+def _assert_close(got, want, dtype):
+    rel = 1e-12 if dtype == np.float64 else 4 * np.finfo(np.float32).eps
+    for name, g, w in zip(NAMES, got, want):
+        w = np.asarray(w)
+        assert g.dtype == DT[dtype][1], name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=rel * _scale(w), err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("periodic", [0, 1])
+def test_setup_ics_match_jax(dtype, periodic):
+    kw = dict(periodx=periodic, periody=periodic, periodz=periodic)
+    sj, jparams = _setup_both((12, 10, 14), dtype, npt=5, **kw)
+    state, params = tpc.setup(12, 10, 14, npt=5, dtype=DT[dtype][1], quiet=True,
+                              device="cpu", **kw)
+    assert params == tpc.params_from(jparams)
+    eps = np.finfo(dtype).eps * (4 if dtype == np.float64 else 2)
+    for name, a, w in zip(NAMES, state, sj):
+        assert a.dtype == DT[dtype][1] and tuple(a.shape) == w.shape, name
+        np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=eps * np.abs(sj[0]).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("cadence", ["make_step", "exchange_every=1", "exchange_every=2"])
+def test_steps_match_jax_on_periodic_block(dtype, cadence):
+    """npt=3: exchange_every=2 runs the ragged chunks [2, 1]."""
+    kw = dict(periodx=1, periody=1, periodz=1, overlapx=4, overlapy=4, overlapz=4)
+    nxyz, nt = (12, 10, 14), 2
+    sj, jparams = _setup_both(nxyz, dtype, npt=3, **kw)
+    tigg.init_global_grid(*nxyz, quiet=True, device="cpu", **kw)
+    params = tpc.params_from(jparams)
+    state = tpc.state_from_numpy(*sj)
+    if cadence == "make_step":
+        jstep, tstep = jpc.make_step(jparams, donate=False), tpc.make_step(params)
+        want = tuple(map(jnp.asarray, sj))
+        for _ in range(nt):
+            want = jstep(*want)
+            state = tstep(*state)
+    else:
+        w = int(cadence[-1])
+        want = jpc.make_multi_step(jparams, nt, donate=False, exchange_every=w)(
+            *map(jnp.asarray, sj))
+        state = tpc.make_multi_step(params, nt, exchange_every=w)(*state)
+    _assert_close(state, want, dtype)
+
+
+@pytest.mark.parametrize("npt,periodx", [(4, 1), (5, 1), (5, 0)])
+def test_fused_cadence_matches_jax_kernel_cadence(npt, periodx):
+    """fused_k=2 on a (16, 32, 128) block, periodic in x with overlap 4 (z
+    has no halo activity, so the JAX package takes its kernel + slab
+    exchange cadence) or not periodic (the kernel alone); odd npt runs one
+    lead iteration first.  The JAX kernel runs through the Pallas
+    interpreter."""
+    kw = dict(periodx=periodx, overlapx=4)
+    nxyz, nt = (16, 32, 128), 2
+    sj, jparams = _setup_both(nxyz, np.float32, npt=npt, **kw)
+    from implicitglobalgrid_tpu.ops.pallas_pt import fused_support_error
+
+    assert fused_support_error(nxyz, 2, 4) is None  # not the JAX fallback
+    with pallas_force_interpret():
+        step = jpc.make_multi_step(jparams, nt, donate=False, fused_k=2, pipelined=False)
+        want = jax.block_until_ready(step(*map(jnp.asarray, sj)))
+    tigg.init_global_grid(*nxyz, quiet=True, device="cpu", **kw)
+    before = fp.launches
+    got = tpc.make_multi_step(tpc.params_from(jparams), nt, fused_k=2, pipelined=False)(
+        *tpc.state_from_numpy(*sj))
+    assert fp.launches == before  # CPU tensors: the plain version, no launch
+    for name, g, w in zip(NAMES, got, want):
+        w = np.asarray(w)
+        assert float(np.abs(g.numpy() - w).max()) / _scale(w) < 2e-5, name
+
+
+def test_pt_schedule_matches_jax():
+    for npt, w, even in itertools.product(range(0, 26), range(1, 9), (True, False)):
+        assert tpc._pt_schedule(npt, w, even=even) == jpc._pt_schedule(npt, w, even=even)
+
+
+@pytest.mark.parametrize("step_kw", [dict(), dict(fused_k=2)])
+def test_two_process_solver_matches_jax_two_devices(step_kw, tmp_path):
+    """Two port ranks over gloo (dimx=2) against the JAX 2-device grid, per
+    block, float64, npt=3 (the fused cadence: one lead iteration, one
+    kernel chunk).  The JAX package runs fused_k in float64 as its plain
+    cadence (its kernel takes no float64); the port runs its kernel's plain
+    version: same math, other constant folding."""
+    kw = dict(dimx=2, periodx=1, overlapx=4)
+    nxyz, nt = (10, 8, 8), 2
+    sj, jparams = _setup_both(nxyz, np.float64, ndev=2, npt=3, **kw)
+    assert jigg.get_global_grid().dims == (2, 1, 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the JAX f64 fused fallback
+        want = jpc.make_multi_step(jparams, nt, donate=False, **step_kw)(*map(jnp.asarray, sj))
+    want = [np.asarray(a) for a in want]
+    pj = {f: getattr(jparams, f) for f in ("Ra", "lx", "ly", "lz", "dT", "phi", "lam_T", "dx",
+                                            "dy", "dz", "dt", "theta_q", "beta_p", "npt",
+                                            "hide_comm")}
+    pj["dtype"] = "float64"
+    outs = spawn(
+        dict(kind="porous", nxyz=list(nxyz), grid=kw, params=pj, nsteps=nt, step=step_kw,
+             inputs=dict(zip(NAMES, sj))),
+        2, tmp_path, timeout=120,
+    )
+    for rank, out in enumerate(outs):
+        for name, w in zip(NAMES, want):
+            n = w.shape[0] // 2  # the block layout: rank r holds rows [r*n, (r+1)*n)
+            np.testing.assert_allclose(out[name], w[rank * n:(rank + 1) * n], rtol=1e-12,
+                                       atol=1e-12 * _scale(w), err_msg=f"{name} rank {rank}")
+
+
+def test_later_slices_raise_not_implemented():
+    state, params = tpc.setup(8, 8, 8, npt=2, dtype=torch.float64, quiet=True, device="cpu")
+    for kw in (dict(pipelined=True), dict(batch=True), dict(autotune=True),
+               dict(coalesce=True)):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tpc.make_multi_step(params, 2, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tpc.make_step(params, batch=True)
+    with pytest.raises(NotImplementedError, match="hide_comm"):
+        tpc.make_multi_step(tpc.Params(hide_comm=True), 1)
+    tigg.finalize_global_grid()
+    with pytest.raises(NotImplementedError, match="hide_comm"):
+        tpc.setup(8, 8, 8, hide_comm=True, quiet=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tpc.run(1, 8, 8, 8, quiet=True, device="cpu", checkpoint_dir="unused")
+    assert not tigg.grid_is_initialized()
+
+
+def test_cadence_errors_match_jax():
+    kw = dict(periodx=1, overlapx=4)
+    _, jparams = _setup_both((10, 8, 8), np.float64, npt=4, **kw)
+    _, params = tpc.setup(10, 8, 8, npt=4, dtype=torch.float64, quiet=True, device="cpu", **kw)
+    hidden = (tpc.Params(**{**params.__dict__, "hide_comm": True}),
+              jpc.Params(**{**jparams.__dict__, "hide_comm": True}))
+
+    def msg(fn):
+        with pytest.raises(ValueError) as e:
+            fn()
+        return str(e.value)
+
+    for args, skw, hide in [
+        ((2,), dict(fused_k=2, exchange_every=4), False),
+        ((2,), dict(fused_k=4), False),
+        ((2,), dict(exchange_every=0), False),
+        ((2,), dict(exchange_every=3), False),
+        ((65,), dict(), False),
+        ((65,), dict(fused_k=2), False),
+        ((2,), dict(fused_k=2), True),
+        ((2,), dict(exchange_every=2), True),
+    ]:
+        tp, jp = hidden if hide else (params, jparams)
+        assert msg(lambda: tpc.make_multi_step(tp, *args, **skw)) == msg(
+            lambda: jpc.make_multi_step(jp, *args, **skw)
+        ), (skw, hide)
+    # JAX warns and runs its plain cadence here; the port has no fallback.
+    with pytest.raises(ValueError, match="no even kernel chunk"):
+        tpc.make_multi_step(tpc.Params(**{**params.__dict__, "npt": 1}), 2, fused_k=2)
+
+
+def _assert_fused_rejects_outside_the_kernel_envelope(device):
+    state, params = tpc.setup(12, 8, 8, npt=4, dtype=torch.float32, quiet=True, device=device,
+                              periodx=1, overlapx=4)
+    before = fp.launches
+    with pytest.raises(ValueError, match="float32 or float64"):
+        tpc.make_multi_step(params, 1, fused_k=2)(*(a.bfloat16() for a in state))
+    assert fp.launches == before
+
+
+def test_kernel_envelope_raises_instead_of_falling_back():
+    """A config the kernel does not take raises; it never runs the plain
+    cadence in the kernel's place."""
+    _assert_fused_rejects_outside_the_kernel_envelope("cpu")
+
+
+@pytest.mark.cuda
+def test_kernel_envelope_raises_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode); run chip_smoke.py on one")
+    _assert_fused_rejects_outside_the_kernel_envelope(None)
+
+
+def test_run_and_temperature():
+    T = tpc.run(2, 8, 8, 8, npt=3, dtype=torch.float64, quiet=True, device="cpu", periodz=1)
+    assert not tigg.grid_is_initialized() and T.shape == (8, 8, 8)
+    assert torch.isfinite(T).all()
+    state, _ = tpc.setup(8, 6, 5, dtype=torch.float32, quiet=True, device="cpu")
+    assert tpc.temperature(state) is state[0]
