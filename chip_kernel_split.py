@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Where the time of the two x-marching kernels goes, on one CUDA card.
+
+Run from the root of a checkout on a machine with one CUDA card::
+
+    python3 chip_kernel_split.py [DIR ...]
+
+Builds, next to the committed ``fused_leapfrog.cu`` and ``fused_pt.cu``,
+copies of them whose ``staggered.cuh`` is edited as text:
+
+* ``no-loads``: the ``cp.async`` plane loads are never issued (the ring
+  keeps whatever shared memory held), so the time is the stepping's;
+* ``no-stepping``: the half steps store nothing, so the compiler drops their
+  arithmetic and shared-memory reads; what is left is loads, barriers and
+  the stores of the owned tile;
+
+and one more pair for each ``DIR`` given (a folder holding another
+``staggered.cuh``, ``fused_leapfrog.cu`` and ``fused_pt.cu``).  Every
+variant is timed at 256^3 float32, k = 6 and 4, in turns (each list of
+variants forward, then backward) with CUDA events, and the committed kernels
+and each ``DIR`` are first checked against the plain versions (bit-exact).
+The variants without loads or stepping compute garbage by design.  Prints
+the card's name and power limit first; exits non-zero without a card or on
+a mismatch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SOURCES = ("fused_leapfrog", "fused_pt")
+LF = (0.05, 0.04, 0.03, 0.07, 10.0, 6.6, 5.0)  # cax, cay, caz, b, idx, idy, idz
+PT = (0.5, 10.0, 6.6, 5.0, 1.0, 3e-4)  # th, idx, idy, idz, ralam, bp
+
+
+def fail(msg: str) -> None:
+    print(f"chip_kernel_split: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def edited(header: str, what: str) -> str:
+    """``staggered.cuh`` without its plane loads or its half-step stores."""
+    if what == "no-loads":
+        edits = [("__pipeline_memcpy_async(", "if (0) __pipeline_memcpy_async(")]
+    else:
+        edits = [(f"{a} = {v};", f"if (s < 0) {a} = {v};")
+                 for a, v in (("Vx[c]", "nx"), ("Vy[c]", "ny"), ("Vz[c]", "nz"), ("P[c]", "p"))]
+    for old, new in edits:
+        if old not in header:
+            fail(f"{what}: '{old}' is not in staggered.cuh any more; update this script")
+        header = header.replace(old, new)
+    return header
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from implicitglobalgrid_tpu_torch.ops import _kernels
+    from implicitglobalgrid_tpu_torch.ops import fused_leapfrog as fl
+    from implicitglobalgrid_tpu_torch.ops import fused_pt as fp
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    csrc = _kernels.CSRC
+    header = (csrc / "staggered.cuh").read_text()
+    variants = {"committed": (csrc, header),
+                "no-loads": (csrc, edited(header, "no-loads")),
+                "no-stepping": (csrc, edited(header, "no-stepping"))}
+    for d in map(Path, sys.argv[1:]):
+        variants[d.name] = (d, (d / "staggered.cuh").read_text())
+
+    build = Path(tempfile.mkdtemp(prefix="igg_split_"))
+    try:
+        procs = {}
+        for name, (src, hdr) in variants.items():
+            out = build / name
+            out.mkdir()
+            (out / "staggered.cuh").write_text(hdr)
+            for s in SOURCES:
+                shutil.copy(src / f"{s}.cu", out)
+                procs[name, s] = subprocess.Popen(
+                    [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(out / f"{s}.so"),
+                     str(out / f"{s}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+        for (name, s), p in procs.items():
+            log = p.communicate()[0]
+            if p.returncode != 0:
+                fail(f"nvcc failed for {name}/{s}.cu:\n{log}")
+            regs = [line.split(":", 1)[1].strip() for line in log.splitlines() if "registers" in line]
+            print(f"{name}/{s}.cu: {'; '.join(regs)}")
+        run(torch, fl, fp, build, list(variants))
+    finally:
+        shutil.rmtree(build, ignore_errors=True)
+
+
+def run(torch, fl, fp, build: Path, names: list[str]) -> None:
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (256, 256, 256)
+    fsig = [ctypes.c_int] * 4
+    checked = [n for n in names if n not in ("no-loads", "no-stepping")]
+
+    def ms(fn, reps=20):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    for k in (6, 4):
+        P, *V = (torch.randn(s, generator=gen, device=dev) for s in (shape, *fl.face_shapes(shape)))
+        T = torch.randn(shape, generator=gen, device=dev)
+        outs = [torch.empty_like(a) for a in (P, *V)]
+        want = {"fused_leapfrog": fl.fused_leapfrog_steps_reference(P, *V, k, *LF),
+                "fused_pt": fp.fused_pt_iterations_reference(T, P, *V, k, *PT)}
+        tile = fl.tile_for(shape, k, 4)
+        stream = torch.cuda.current_stream().cuda_stream
+        for name in names + names[::-1]:
+            times = []
+            for s, co, ins in (("fused_leapfrog", LF, (P, *V)), ("fused_pt", PT, (T, P, *V))):
+                fn = getattr(ctypes.CDLL(str(build / name / f"{s}.so")), f"igg_{s}_f32")
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p] * (len(ins) + 4) + fsig
+                               + [ctypes.c_float] * len(co) + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+                def launch(fn=fn, co=co, ins=ins):
+                    code = fn(*(a.data_ptr() for a in (*ins, *outs)), *shape, k, *co, *tile, stream)
+                    if code != 0:
+                        fail(f"{name}/{s}: CUDA error {code}")
+
+                launch()
+                torch.cuda.synchronize()
+                if name in checked and not all(torch.equal(a, b) for a, b in zip(outs, want[s])):
+                    fail(f"{name}/{s} k={k} disagrees with the plain version")
+                times.append(ms(launch))
+            print(f"256^3 f32 k={k} tile {tile} {name}: fused_leapfrog_steps {times[0]!r} ms, "
+                  f"fused_pt_iterations {times[1]!r} ms")
+
+
+if __name__ == "__main__":
+    main()

@@ -15,11 +15,14 @@ and then prints no result line):
    random inputs at 256^3: ``fused_diffusion_steps`` in float32 for
    k = 2, 4, 8 and float64 for k = 4; ``fused_leapfrog_steps`` and
    ``fused_pt_iterations`` (random read-only T) in float32 for k = 2, 4, 6
-   and float64 for k = 4.  Tolerance: bit-exact (the kernels are built with
-   ``--fmad=false`` and round like their plain versions); the frozen outer
-   ring (diffusion) and frozen boundary faces (staggered kernels) are
-   checked bit-exact separately, P/Pf must change on the array boundary,
-   and T must come back unchanged.
+   and float64 for k = 4, and at the x-marching kernels' ragged edges:
+   (37, 45, 70) in float32 for k = 2, 6, 8 and float64 for k = 4, a block
+   smaller than one window (12, 12, 12) at k = 6, and an x extent shorter
+   than the plane ring (5, 64, 96) at k = 4.  Tolerance: bit-exact (the
+   kernels are built with ``--fmad=false`` and round like their plain
+   versions); the frozen outer ring (diffusion) and frozen boundary faces
+   (staggered kernels) are checked bit-exact separately, P/Pf must change on
+   the array boundary, and T must come back unchanged.
 3. Diffusion main path, 256^3 float32 local block, periodic in x, y and z
    with overlap 8: ``diffusion3d.setup`` ->
    ``make_multi_step(nsteps=16, fused_k=4)`` (kernel launches + width-4
@@ -41,6 +44,9 @@ and then prints no result line):
    (max |diff| / max(scale, 1) < 2e-5 per field); then the ragged npt=10
    (chunks [6, 4]), non-periodic, against the same plain cadence.
 
+Before the timing lines of phases 5 and 6, each x-marching kernel's tile,
+shared memory per block and resident blocks per SM
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 k=6.
 Every main path runs with every launch count set to 0 just before it and
 read just after.  Then one JSON line with every kernel's launches, error and
 times (kernel, plain version, bound from the card's published HBM rate and
@@ -178,7 +184,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = dict.fromkeys(modules, 0.0)
 
-    def compare(name, fn, ref, ins, k, dtype, frozen):
+    def compare(name, fn, ref, ins, k, dtype, frozen, where="256^3"):
         """One launch against the plain version, bit for bit."""
         before = modules[name].launches
         out = fn(*ins, k)
@@ -190,7 +196,7 @@ def main() -> None:
         want = want if isinstance(want, tuple) else (want,)
         err = max(float((a - b).abs().max()) for a, b in zip(out, want))
         checks = frozen(out)
-        print(f"phase 2: {name} {str(dtype)[6:]} k={k} 256^3: max|kernel-plain| = {err!r} "
+        print(f"phase 2: {name} {str(dtype)[6:]} k={k} {where}: max|kernel-plain| = {err!r} "
               f"(tolerance 0: bit-exact), {checks}")
         if err != 0.0 or not all(checks.values()):
             fail(f"{name} disagrees with its plain version ({dtype}, k={k}): {err!r}, {checks}")
@@ -208,10 +214,15 @@ def main() -> None:
 
     lf = (0.05, 0.04, 0.03, 0.07, 10.0, 6.6, 5.0)  # cax, cay, caz, b, idx, idy, idz
     pt = (0.5, 10.0, 6.6, 5.0, 1.0, 3e-4)  # th, idx, idy, idz, ralam, bp
-    for dtype, k in ((torch.float32, 2), (torch.float32, 4), (torch.float32, 6), (torch.float64, 4)):
-        cells = [torch.randn(shape, generator=gen, device=dev, dtype=dtype) for _ in range(2)]
+    f32, f64 = torch.float32, torch.float64
+    ragged = ((37, 45, 70), f32, 2), ((37, 45, 70), f32, 6), ((37, 45, 70), f32, 8), \
+        ((37, 45, 70), f64, 4), ((12, 12, 12), f32, 6), ((5, 64, 96), f32, 4)
+    for sh, dtype, k in (*((shape, dt, k) for dt, k in ((f32, 2), (f32, 4), (f32, 6), (f64, 4))),
+                         *ragged):
+        where = "256^3" if sh == shape else str(sh)
+        cells = [torch.randn(sh, generator=gen, device=dev, dtype=dtype) for _ in range(2)]
         faces = [0.1 * torch.randn(s, generator=gen, device=dev, dtype=dtype)
-                 for s in fl.face_shapes(shape)]
+                 for s in fl.face_shapes(sh)]
 
         def staggered_checks(out, first, *, T=None):
             checks = {
@@ -225,15 +236,23 @@ def main() -> None:
         compare("fused_leapfrog_steps",
                 lambda *a: fl.fused_leapfrog_steps(*a[:-1], a[-1], *lf),
                 lambda *a: fl.fused_leapfrog_steps_reference(*a[:-1], a[-1], *lf),
-                (cells[1], *faces), k, dtype, lambda out: staggered_checks(out, "P"))
+                (cells[1], *faces), k, dtype, lambda out: staggered_checks(out, "P"), where)
         T0 = cells[0].clone()
         compare("fused_pt_iterations",
                 lambda *a: fp.fused_pt_iterations(*a[:-1], a[-1], *pt),
                 lambda *a: fp.fused_pt_iterations_reference(*a[:-1], a[-1], *pt),
-                (*cells, *faces), k, dtype, lambda out: staggered_checks(out, "Pf", T=T0))
+                (*cells, *faces), k, dtype, lambda out: staggered_checks(out, "Pf", T=T0), where)
         del cells, faces, T0
 
     records = {}
+
+    def plan(name, src, k):
+        """The x-marching kernel's launch plan at 256^3 float32."""
+        tile = fl.tile_for(shape, k, 4)
+        print(f"{name}: tile (bx, by, bz) = {tile}, grid {fl.grid(shape, tile)}, "
+              f"{fl.window_bytes(shape, k, tile, 4)} B shared memory per block, "
+              f"{fl.resident_blocks(src, shape, k, 4)} resident blocks per SM "
+              f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs) {card}")
 
     def record(name, launches, ms, plain_ms, bound_ms, bound_by):
         """The kernel's line of the JSON record (no PyTorch call computes the
@@ -359,6 +378,7 @@ def main() -> None:
     ref = fl.fused_leapfrog_steps_reference(*state, k, *co)
     max_err["fused_leapfrog_steps"] = max(
         max_err["fused_leapfrog_steps"], *(float((a - b).abs().max()) for a, b in zip(out, ref)))
+    plan("phase 5: fused_leapfrog_steps", "fused_leapfrog", k)
     kernel_ms = cuda_ms(torch, lambda: fl.fused_leapfrog_steps(*state, k, *co), reps=20)
     plain_ms = cuda_ms(torch, lambda: fl.fused_leapfrog_steps_reference(*state, k, *co), reps=3)
     bound_ms, bound_by = bound(2 * nbytes(*state),
@@ -441,6 +461,7 @@ def main() -> None:
             max_err["fused_pt_iterations"] = max(
                 max_err["fused_pt_iterations"],
                 *(float((a - b).abs().max()) for a, b in zip(out, ref)))
+            plan("phase 6: fused_pt_iterations", "fused_pt", w)
             kernel_ms = cuda_ms(torch, lambda: fp.fused_pt_iterations(T, *s, w, *co), reps=20)
             plain_ms = cuda_ms(torch, lambda: fp.fused_pt_iterations_reference(T, *s, w, *co),
                                reps=3)

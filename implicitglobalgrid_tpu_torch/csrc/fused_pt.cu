@@ -18,70 +18,64 @@
 //
 // Bound: HBM bytes.  A launch must read T, Pf and the three fluxes once and
 // write Pf and the fluxes once (9 * n0*n1*n2 * sizeof(T), the face planes
-// aside).  Design: the leapfrog kernel's (same staggered window, frozen
-// faces, trapezoid argument and in-place half steps, staggered.cuh); T is not
-// staged in shared memory but read where the buoyancy needs it, so the four
-// windows keep the leapfrog kernel's tiles.
+// aside).  Design: the leapfrog kernel's x-marching wavefront (staggered.cuh)
+// with the flux formula.  T is not staged in the shared-memory ring (a fifth
+// ring does not fit beside the four at the (16, 32) tile): each level reads
+// T with __ldg for the z-face buoyancy, coalesced z rows of a plane that the
+// levels before it read one iteration earlier, each level's reads issued
+// while the level before it steps its cells, so that their latency (mostly
+// L2: the L1 left beside the ring cannot hold k planes of T) overlaps.
 //
-// Simple first: no TMA, no warp specialisation, no register queue along z.
+// Simple first: no TMA, no warp specialisation, no register queues.
 
 #include "staggered.cuh"
 
 namespace {
 
 template <typename Real>
+struct Pt {
+  const Real* __restrict__ t;
+  Real th, idx, idy, idz, ralam, bp;
+
+  // T at the z faces' two cells, read a half step ahead.
+  __device__ Real ld(int64_t g) const { return __ldg(t + g); }
+  __device__ Real vx(Real q, Real p, Real pm) const {
+    const Real f = -idx * (p - pm);
+    return q + th * (f - q);
+  }
+  __device__ Real vy(Real q, Real p, Real pm) const {
+    const Real f = -idy * (p - pm);
+    return q + th * (f - q);
+  }
+  __device__ Real vz(Real q, Real p, Real pm, Real tp, Real tm) const {
+    const Real f = -idz * (p - pm) + ralam * (Real(0.5) * (tp + tm));
+    return q + th * (f - q);
+  }
+  __device__ Real p(Real P, Real qx, Real qx1, Real qy, Real qy1, Real qz, Real qz1) const {
+    const Real div = ((qx1 - qx) * idx + (qy1 - qy) * idy) + (qz1 - qz) * idz;
+    return P - bp * div;
+  }
+};
+
+template <typename Real>
 __global__ void __launch_bounds__(igg::kThreads)
-fused_pt_kernel(const Real* __restrict__ t, const Real* __restrict__ p_in,
-                const Real* __restrict__ qx_in, const Real* __restrict__ qy_in,
-                const Real* __restrict__ qz_in, Real* __restrict__ p_out,
-                Real* __restrict__ qx_out, Real* __restrict__ qy_out, Real* __restrict__ qz_out,
-                int n0, int n1, int n2, int k, Real th, Real idx, Real idy, Real idz, Real ralam,
-                Real bp, int bx, int by, int bz) {
+fused_pt_kernel(const Real* __restrict__ p_in, const Real* __restrict__ qx_in,
+                const Real* __restrict__ qy_in, const Real* __restrict__ qz_in,
+                Real* __restrict__ p_out, Real* __restrict__ qx_out, Real* __restrict__ qy_out,
+                Real* __restrict__ qz_out, int n0, int n1, int n2, int k, Pt<Real> ops, int bx,
+                int by, int bz) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const igg::Window w = igg::Window::make(n0, n1, n2, k, bx, by, bz);
-  igg::Fields<Real> f = igg::Fields<Real>::carve(reinterpret_cast<Real*>(smem_raw), w);
-  f.load(w, p_in, qx_in, qy_in, qz_in);
-  __syncthreads();
+  igg::march(w, k, reinterpret_cast<Real*>(smem_raw), p_in, qx_in, qy_in, qz_in, p_out, qx_out,
+             qy_out, qz_out, ops);
+}
 
-  Real *P = f.c, *Qx = f.fx, *Qy = f.fy, *Qz = f.fz;
-  const int ey = w.y.e, ez = w.z.e;
-  const int sx = ey * ez;             // x stride of Pf and qx (y stride: ez)
-  const int syx = (ey + 1) * ez;      // x stride of qy (y stride: ez)
-  const int szx = ey * (ez + 1), szy = ez + 1;  // strides of qz
-  const int x0 = w.x.w0, y0 = w.y.w0, z0 = w.z.w0;
-  for (int s = 1; s <= k; ++s) {
-    igg::for_box(w.x.face_lo(s), w.x.face_hi(s), w.y.side_lo(s), w.y.side_hi(s),
-                 w.z.side_lo(s), w.z.side_hi(s), [&](int x, int y, int z) {
-                   const int c = x * sx + y * ez + z;
-                   const Real q = Qx[c], fx = -idx * (P[c] - P[c - sx]);
-                   Qx[c] = q + th * (fx - q);
-                 });
-    igg::for_box(w.x.side_lo(s), w.x.side_hi(s), w.y.face_lo(s), w.y.face_hi(s),
-                 w.z.side_lo(s), w.z.side_hi(s), [&](int x, int y, int z) {
-                   const int c = x * sx + y * ez + z, v = x * syx + y * ez + z;
-                   const Real q = Qy[v], fy = -idy * (P[c] - P[c - ez]);
-                   Qy[v] = q + th * (fy - q);
-                 });
-    igg::for_box(w.x.side_lo(s), w.x.side_hi(s), w.y.side_lo(s), w.y.side_hi(s),
-                 w.z.face_lo(s), w.z.face_hi(s), [&](int x, int y, int z) {
-                   const int c = x * sx + y * ez + z, v = x * szx + y * szy + z;
-                   const int64_t g = ((int64_t)(x0 + x) * n1 + y0 + y) * n2 + z0 + z;
-                   const Real tz = Real(0.5) * (__ldg(t + g) + __ldg(t + g - 1));
-                   const Real q = Qz[v], fz = -idz * (P[c] - P[c - 1]) + ralam * tz;
-                   Qz[v] = q + th * (fz - q);
-                 });
-    __syncthreads();
-    igg::for_box(w.x.cell_lo(s), w.x.cell_hi(s), w.y.cell_lo(s), w.y.cell_hi(s),
-                 w.z.cell_lo(s), w.z.cell_hi(s), [&](int x, int y, int z) {
-                   const int c = x * sx + y * ez + z;
-                   const int vy = x * syx + y * ez + z, vz = x * szx + y * szy + z;
-                   const Real div = ((Qx[c + sx] - Qx[c]) * idx + (Qy[vy + ez] - Qy[vy]) * idy)
-                                  + (Qz[vz + 1] - Qz[vz]) * idz;
-                   P[c] = P[c] - bp * div;
-                 });
-    __syncthreads();
-  }
-  f.store(w, p_out, qx_out, qy_out, qz_out);
+template <typename Real>
+cudaError_t prepare(int n1, int n2, int k, int by, int bz, int* smem) {
+  *smem = (int)igg::ring_bytes<Real>(n1, n2, k, by, bz);
+  constexpr int kMaxDevices = 64;
+  static int smem_cap[kMaxDevices] = {};
+  return igg::ensure_smem(fused_pt_kernel<Real>, smem_cap, kMaxDevices, *smem);
 }
 
 template <typename Real>
@@ -89,18 +83,25 @@ int launch(const void* t, const void* p, const void* qx, const void* qy, const v
            void* p_out, void* qx_out, void* qy_out, void* qz_out, int n0, int n1, int n2, int k,
            Real th, Real idx, Real idy, Real idz, Real ralam, Real bp, int bx, int by, int bz,
            void* stream) {
-  const int smem = (int)igg::fields_bytes<Real>(n0, n1, n2, k, bx, by, bz);
-  constexpr int kMaxDevices = 64;
-  static int smem_cap[kMaxDevices] = {};
-  cudaError_t err = igg::ensure_smem(fused_pt_kernel<Real>, smem_cap, kMaxDevices, smem);
+  int smem = 0;
+  cudaError_t err = prepare<Real>(n1, n2, k, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n2 + bz - 1) / bz, (n1 + by - 1) / by, (n0 + bx - 1) / bx);
   fused_pt_kernel<Real><<<grid, igg::kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const Real*>(t), static_cast<const Real*>(p), static_cast<const Real*>(qx),
-      static_cast<const Real*>(qy), static_cast<const Real*>(qz), static_cast<Real*>(p_out),
-      static_cast<Real*>(qx_out), static_cast<Real*>(qy_out), static_cast<Real*>(qz_out), n0,
-      n1, n2, k, th, idx, idy, idz, ralam, bp, bx, by, bz);
+      static_cast<const Real*>(p), static_cast<const Real*>(qx), static_cast<const Real*>(qy),
+      static_cast<const Real*>(qz), static_cast<Real*>(p_out), static_cast<Real*>(qx_out),
+      static_cast<Real*>(qy_out), static_cast<Real*>(qz_out), n0, n1, n2, k,
+      Pt<Real>{static_cast<const Real*>(t), th, idx, idy, idz, ralam, bp}, bx, by, bz);
   return (int)cudaGetLastError();
+}
+
+template <typename Real>
+int occupancy(int n1, int n2, int k, int by, int bz, int* blocks) {
+  int smem = 0;
+  cudaError_t err = prepare<Real>(n1, n2, k, by, bz, &smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_pt_kernel<Real>,
+                                                            igg::kThreads, smem);
 }
 
 }  // namespace
@@ -123,6 +124,13 @@ int igg_fused_pt_f64(const void* t, const void* p, const void* qx, const void* q
                      void* stream) {
   return launch<double>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k, th,
                         idx, idy, idz, ralam, bp, bx, by, bz, stream);
+}
+
+// Resident blocks per SM of the kernel for this item size and tile, into
+// *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int igg_fused_pt_occupancy(int itemsize, int n1, int n2, int k, int by, int bz, int* blocks) {
+  return itemsize == 8 ? occupancy<double>(n1, n2, k, by, bz, blocks)
+                       : occupancy<float>(n1, n2, k, by, bz, blocks);
 }
 
 const char* igg_cuda_error_string(int code) {

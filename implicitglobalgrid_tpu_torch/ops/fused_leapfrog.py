@@ -39,12 +39,16 @@ from .fused_stencil import (  # one envelope for every kernel
 #: version do not count).
 launches = 0
 
-#: Output tiles ``(bx, by, bz)`` in order of preference; the first whose
-#: window of the four fields (the tile plus ``k`` cells a side, clipped to
-#: the block, one more face plane along each face field's own axis) fits a
-#: block's shared memory is used.
-_TILES = ((8, 8, 32), (8, 8, 16), (8, 8, 8), (4, 8, 16), (4, 4, 16), (4, 4, 8),
-          (4, 4, 4), (2, 2, 4), (2, 2, 2))
+#: Owned ``(by, bz)`` tiles of the x-marching kernels, in order of
+#: preference; a block owns one and marches along all of x.  The first whose
+#: plane ring fits a block's shared memory and whose window plane fits the
+#: threads' slots is used.  (16, 32) puts 128 blocks on the 132 SMs at 256^3.
+_TILES = ((16, 32), (8, 32), (8, 16), (8, 8), (4, 8), (4, 4))
+
+#: Mirrors of ``csrc/staggered.cuh``: threads per block, plane positions per
+#: thread by item size, and x planes stepped (and loaded, one iteration
+#: ahead) per iteration.
+THREADS, SLOTS, PLANES = 512, {4: 3, 8: 2}, 2
 
 #: Padded-axis extents of the TPU kernel's `pad_faces` layout, relative to
 #: the cell size (x/y: Mosaic sublane alignment, z: lane-tile alignment).
@@ -79,19 +83,53 @@ def unpad_faces(Vxp, Vyp, Vzp):
     return Vxp[: 1 - PADS[0]], Vyp[:, : 1 - PADS[1]], Vzp[:, :, : 1 - PADS[2]]
 
 
+def ring_depth(k: int) -> int:
+    """x planes per field in a block's ring: an iteration steps ``k +
+    PLANES`` of them while the next iteration's ``PLANES`` load."""
+    return k + 2 * PLANES
+
+
+def window_plane(shape, k: int, tile) -> tuple[int, int]:
+    """The largest window's ``(ey, ez)``: the owned ``(by, bz)`` of the tile
+    ``(bx, by, bz)`` plus ``k`` cells a side, clipped to the block."""
+    return min(tile[1] + 2 * k, shape[1]), min(tile[2] + 2 * k, shape[2])
+
+
 def window_bytes(shape, k: int, tile, itemsize: int) -> int:
-    """Shared memory of one block's window of the four fields."""
-    ex, ey, ez = (min(b + 2 * k, n) for b, n in zip(tile, shape))
-    cells = ex * ey * ez + (ex + 1) * ey * ez + ex * (ey + 1) * ez + ex * ey * (ez + 1)
-    return cells * itemsize
+    """Shared memory of one block: a ring of `ring_depth` x planes of each of
+    the four fields, every plane ``(ey+1) x (ez+1)`` (room for the y and z
+    faces' extra row)."""
+    ey, ez = window_plane(shape, k, tile)
+    return 4 * ring_depth(k) * (ey + 1) * (ez + 1) * itemsize
 
 
 def tile_for(shape, k: int, itemsize: int) -> tuple[int, int, int]:
-    """The kernel's output tile for this block shape, ``k`` and item size."""
-    for t in _TILES:
-        if window_bytes(shape, k, t, itemsize) <= _SMEM_PER_BLOCK:
-            return t
+    """The kernel's tile ``(bx, by, bz)`` for this block shape, ``k`` and
+    item size: ``bx`` is all of x (one segment)."""
+    for by, bz in _TILES:
+        tile = (shape[0], by, bz)
+        ey, ez = window_plane(shape, k, tile)
+        if (window_bytes(shape, k, tile, itemsize) <= _SMEM_PER_BLOCK
+                and (ey + 1) * (ez + 1) <= SLOTS[itemsize] * THREADS):
+            return tile
     raise ValueError(f"no kernel tile fits shared memory for k={k}, itemsize={itemsize}")
+
+
+def grid(shape, tile) -> tuple[int, int, int]:
+    """The launch grid ``(x, y, z)`` = tiles along (z, y, x) of the block."""
+    return tuple(-(-n // b) for n, b in zip(shape[::-1], tile[::-1]))
+
+
+def resident_blocks(source: str, shape, k: int, itemsize: int) -> int:
+    """Blocks of kernel ``csrc/<source>.cu`` resident per SM at this shape's
+    tile (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; needs the card)."""
+    fn = _kernels.entry(source, f"igg_{source}_occupancy",
+                        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    _, by, bz = tile_for(shape, k, itemsize)
+    _kernels.check(source, fn(itemsize, shape[1], shape[2], k, by, bz, ctypes.byref(blocks)),
+                   f"{source} occupancy")
+    return blocks.value
 
 
 def validate(cells, faces, k: int, what: str) -> None:
@@ -125,8 +163,8 @@ def validate(cells, faces, k: int, what: str) -> None:
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not {device}")
     if not all(a.is_contiguous() for a in fields):
         raise ValueError(f"{what} needs contiguous fields")
-    bx, by, _ = tile_for(shape, k, cells[0].element_size())
-    if -(-shape[0] // bx) > 65535 or -(-shape[1] // by) > 65535:
+    _, gy, gz = grid(shape, tile_for(shape, k, cells[0].element_size()))
+    if gy > 65535 or gz > 65535:
         raise ValueError(f"block {shape} exceeds the kernel's launch grid")
 
 

@@ -150,11 +150,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fields, k, match):
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("k", [2, 4, 6, 8])
 def test_tiles_fit_shared_memory(k, itemsize):
-    tile = fl.tile_for((256, 256, 256), k, itemsize)
-    ex, ey, ez = (b + 2 * k for b in tile)
-    cells = ex * ey * ez + (ex + 1) * ey * ez + ex * (ey + 1) * ez + ex * ey * (ez + 1)
-    assert cells * itemsize == fl.window_bytes((256, 256, 256), k, tile, itemsize) <= 232448
-    assert fl.tile_for((12, 12, 12), k, 4) == fl._TILES[0]  # a small block clips the window
+    """The ring of k+4 x planes of the four fields, each plane the owned
+    (by, bz) plus k a side and one more row and column for the y/z faces."""
+    bx, by, bz = fl.tile_for((256, 256, 256), k, itemsize)
+    assert bx == 256 and fl.ring_depth(k) == k + 4
+    plane = (by + 2 * k + 1) * (bz + 2 * k + 1)
+    assert 4 * (k + 4) * plane * itemsize == fl.window_bytes((256, 256, 256), k, (bx, by, bz),
+                                                             itemsize) <= 232448
+    assert (by, bz) == next(t for t in fl._TILES
+                            if fl.window_bytes((256,) * 3, k, (256, *t), itemsize) <= 232448)
+    assert fl.tile_for((12, 12, 12), k, 4) == (12, *fl._TILES[0])  # a small block clips
 
 
 @pytest.fixture
@@ -165,11 +170,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,k", [(torch.float32, 2), (torch.float32, 6),
-                                     (torch.float32, 8), (torch.float64, 4)])
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype, k):
+@pytest.mark.parametrize("shape,dtype,k", [
+    ((37, 45, 70), torch.float32, 2), ((37, 45, 70), torch.float32, 6),  # ragged tiles
+    ((37, 45, 70), torch.float32, 8), ((37, 45, 70), torch.float64, 4),
+    ((12, 12, 12), torch.float32, 6),  # a block smaller than one window
+    ((5, 64, 96), torch.float32, 4),  # n0 shorter than the plane ring
+])
+def test_cuda_kernel_matches_plain_version(cuda_device, shape, dtype, k):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    shape = (37, 45, 70)  # ragged against every tile
     ins = [torch.randn(s, generator=gen, device=cuda_device, dtype=dtype)
            for s in (shape, *fl.face_shapes(shape))]
     co, _ = _coeffs()

@@ -144,14 +144,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fields, k, match):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,k", [(torch.float32, 2), (torch.float32, 6),
-                                     (torch.float32, 8), (torch.float64, 4)])
-def test_cuda_kernel_matches_plain_version(dtype, k):
+@pytest.mark.parametrize("shape,dtype,k", [
+    ((37, 45, 70), torch.float32, 2), ((37, 45, 70), torch.float32, 6),  # ragged tiles
+    ((37, 45, 70), torch.float32, 8), ((37, 45, 70), torch.float64, 4),
+    ((12, 12, 12), torch.float32, 6),  # a block smaller than one window
+    ((5, 64, 96), torch.float32, 4),  # n0 shorter than the plane ring
+])
+def test_cuda_kernel_matches_plain_version(shape, dtype, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode); run chip_smoke.py on one")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    shape = (37, 45, 70)  # ragged against every tile
     ins = [torch.randn(s, generator=gen, device=dev, dtype=dtype)
            for s in (shape, shape, *fp.face_shapes(shape))]
     T0 = ins[0].clone()
