@@ -15,10 +15,12 @@ and then prints no result line):
    random inputs at 256^3: ``fused_diffusion_steps`` in float32 for
    k = 2, 4, 8 and float64 for k = 4; ``fused_leapfrog_steps`` and
    ``fused_pt_iterations`` (random read-only T) in float32 for k = 2, 4, 6
-   and float64 for k = 4, and at the x-marching kernels' ragged edges:
-   (37, 45, 70) in float32 for k = 2, 6, 8 and float64 for k = 4, a block
-   smaller than one window (12, 12, 12) at k = 6, and an x extent shorter
-   than the plane ring (5, 64, 96) at k = 4.  Tolerance: bit-exact (the
+   and float64 for k = 4; and at the x-marching kernels' ragged edges:
+   (37, 45, 70) in float32 for k = 2, 6 (staggered) or 4 (diffusion), 8 and
+   float64 for k = 4, a block smaller than one window (12, 12, 12) at k = 6
+   (staggered) or 4 (diffusion), an x extent shorter than the plane rings
+   (5, 64, 96) at k = 4, and for the diffusion kernel an odd z window
+   (9, 20, 37) at k = 4.  Tolerance: bit-exact (the
    kernels are built with ``--fmad=false`` and round like their plain
    versions); the frozen outer ring (diffusion) and frozen boundary faces
    (staggered kernels) are checked bit-exact separately, P/Pf must change on
@@ -44,9 +46,10 @@ and then prints no result line):
    (max |diff| / max(scale, 1) < 2e-5 per field); then the ragged npt=10
    (chunks [6, 4]), non-periodic, against the same plain cadence.
 
-Before the timing lines of phases 5 and 6, each x-marching kernel's tile,
-shared memory per block and resident blocks per SM
-(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 k=6.
+Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
+tile, shared memory per block and resident blocks per SM
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 and
+the main path's k; phase 3 also times the width-4 exchange of T.
 Every main path runs with every launch count set to 0 just before it and
 read just after.  Then one JSON line with every kernel's launches, error and
 times (kernel, plain version, bound from the card's published HBM rate and
@@ -203,18 +206,22 @@ def main() -> None:
         max_err[name] = max(max_err[name], err)
 
     cx, cy, cz = 1 / 8.1, 0.5 / 8.1, 0.25 / 8.1
-    for dtype, k in ((torch.float32, 2), (torch.float32, 4), (torch.float32, 8), (torch.float64, 4)):
-        T = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
-        Cp = 1 + torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+    f32, f64 = torch.float32, torch.float64
+    for sh, dtype, k in (*((shape, dt, k) for dt, k in ((f32, 2), (f32, 4), (f32, 8), (f64, 4))),
+                         ((37, 45, 70), f32, 2), ((37, 45, 70), f32, 4), ((37, 45, 70), f32, 8),
+                         ((37, 45, 70), f64, 4), ((12, 12, 12), f32, 4), ((5, 64, 96), f32, 4),
+                         ((9, 20, 37), f32, 4)):
+        T = torch.randn(sh, generator=gen, device=dev, dtype=dtype)
+        Cp = 1 + torch.rand(sh, generator=gen, device=dev, dtype=dtype)
         compare("fused_diffusion_steps",
                 lambda T, Cp, k: fs.fused_diffusion_steps(T, Cp, k, cx, cy, cz),
                 lambda T, Cp, k: fs.fused_diffusion_steps_reference(T, Cp, k, cx, cy, cz),
-                (T, Cp), k, dtype, lambda out: {"ring bit-exact": ring_equal(torch, out[0], T)})
+                (T, Cp), k, dtype, lambda out: {"ring bit-exact": ring_equal(torch, out[0], T)},
+                "256^3" if sh == shape else str(sh))
         del T, Cp
 
     lf = (0.05, 0.04, 0.03, 0.07, 10.0, 6.6, 5.0)  # cax, cay, caz, b, idx, idy, idz
     pt = (0.5, 10.0, 6.6, 5.0, 1.0, 3e-4)  # th, idx, idy, idz, ralam, bp
-    f32, f64 = torch.float32, torch.float64
     ragged = ((37, 45, 70), f32, 2), ((37, 45, 70), f32, 6), ((37, 45, 70), f32, 8), \
         ((37, 45, 70), f64, 4), ((12, 12, 12), f32, 6), ((5, 64, 96), f32, 4)
     for sh, dtype, k in (*((shape, dt, k) for dt, k in ((f32, 2), (f32, 4), (f32, 6), (f64, 4))),
@@ -246,12 +253,13 @@ def main() -> None:
 
     records = {}
 
-    def plan(name, src, k):
-        """The x-marching kernel's launch plan at 256^3 float32."""
-        tile = fl.tile_for(shape, k, 4)
-        print(f"{name}: tile (bx, by, bz) = {tile}, grid {fl.grid(shape, tile)}, "
-              f"{fl.window_bytes(shape, k, tile, 4)} B shared memory per block, "
-              f"{fl.resident_blocks(src, shape, k, 4)} resident blocks per SM "
+    def plan(name, mod, k, blocks, tile=None):
+        """An x-marching kernel's launch plan at 256^3 float32 (``mod``: its
+        wrapper module; ``blocks``: resident blocks per SM)."""
+        tile = tile or mod.tile_for(shape, k, 4)
+        print(f"{name}: tile (bx, by, bz) = {tile}, grid {mod.grid(shape, tile)}, "
+              f"{mod.window_bytes(shape, k, tile, 4)} B shared memory per block, "
+              f"{blocks} resident blocks per SM "
               f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs) {card}")
 
     def record(name, launches, ms, plain_ms, bound_ms, bound_by):
@@ -294,6 +302,8 @@ def main() -> None:
     ref = fs.fused_diffusion_steps_reference(T0, Cp, k, *c3)
     max_err["fused_diffusion_steps"] = max(max_err["fused_diffusion_steps"],
                                            float((out - ref).abs().max()))
+    plan("phase 3: fused_diffusion_steps", fs, k, fs.resident_blocks(shape, k, 4),
+         fs.launch_tile(shape, k, 4, dev))
     kernel_ms = cuda_ms(torch, lambda: fs.fused_diffusion_steps(T0, Cp, k, *c3), reps=20)
     plain_ms = cuda_ms(torch, lambda: fs.fused_diffusion_steps_reference(T0, Cp, k, *c3), reps=3)
     bound_ms, bound_by = bound(nbytes(T0, Cp, T0),
@@ -303,6 +313,9 @@ def main() -> None:
     plain_step_ms = cuda_ms(torch, lambda: plain(T0, Cp), reps=2, warmup=1) / nsteps
     teff = 2 * nbytes(T0) / (step_ms * 1e-3) / 1e9
     plain_teff = 2 * nbytes(T0) / (plain_step_ms * 1e-3) / 1e9
+    buf = T0.clone()
+    exchange_ms = cuda_ms(torch, lambda: igg.update_halo(buf, width=k), reps=10)
+    del buf
     copy_src = torch.empty(256 * 2**20, dtype=torch.float32, device=dev)
     copy_dst = torch.empty_like(copy_src)
     copy_ms = cuda_ms(torch, lambda: copy_dst.copy_(copy_src), reps=10)
@@ -312,6 +325,8 @@ def main() -> None:
           f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}) {card}")
     print(f"phase 3: fused_k=4 {step_ms!r} ms/step, T_eff {teff!r} GB/s; plain cadence "
           f"{plain_step_ms!r} ms/step, T_eff {plain_teff!r} GB/s {card}")
+    print(f"phase 3: width-4 exchange of T (periodic x, y, z): {exchange_ms!r} ms (one per 4 "
+          f"steps) {card}")
     print(f"phase 3: device-to-device copy of 1 GiB: {copy_gbs!r} GB/s (read+write) {card}")
     record("fused_diffusion_steps", diffusion_counts["fused_diffusion_steps"], kernel_ms,
            plain_ms, bound_ms, bound_by)
@@ -378,7 +393,7 @@ def main() -> None:
     ref = fl.fused_leapfrog_steps_reference(*state, k, *co)
     max_err["fused_leapfrog_steps"] = max(
         max_err["fused_leapfrog_steps"], *(float((a - b).abs().max()) for a, b in zip(out, ref)))
-    plan("phase 5: fused_leapfrog_steps", "fused_leapfrog", k)
+    plan("phase 5: fused_leapfrog_steps", fl, k, fl.resident_blocks("fused_leapfrog", shape, k, 4))
     kernel_ms = cuda_ms(torch, lambda: fl.fused_leapfrog_steps(*state, k, *co), reps=20)
     plain_ms = cuda_ms(torch, lambda: fl.fused_leapfrog_steps_reference(*state, k, *co), reps=3)
     bound_ms, bound_by = bound(2 * nbytes(*state),
@@ -461,7 +476,7 @@ def main() -> None:
             max_err["fused_pt_iterations"] = max(
                 max_err["fused_pt_iterations"],
                 *(float((a - b).abs().max()) for a, b in zip(out, ref)))
-            plan("phase 6: fused_pt_iterations", "fused_pt", w)
+            plan("phase 6: fused_pt_iterations", fl, w, fl.resident_blocks("fused_pt", shape, w, 4))
             kernel_ms = cuda_ms(torch, lambda: fp.fused_pt_iterations(T, *s, w, *co), reps=20)
             plain_ms = cuda_ms(torch, lambda: fp.fused_pt_iterations_reference(T, *s, w, *co),
                                reps=3)

@@ -111,6 +111,16 @@ def entry(name: str, symbol: str, argtypes):
     return fn
 
 
+def resident_blocks(name: str, itemsize: int, n1: int, n2: int, k: int, by: int, bz: int) -> int:
+    """Blocks of kernel ``csrc/<name>.cu`` resident per SM for this item
+    size, (n1, n2), k and (by, bz) tile (its ``igg_<name>_occupancy`` entry,
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`; needs the card)."""
+    fn = entry(name, f"igg_{name}_occupancy", [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    check(name, fn(itemsize, n1, n2, k, by, bz, ctypes.byref(blocks)), f"{name} occupancy")
+    return blocks.value
+
+
 def check(name: str, code: int, what: str) -> None:
     """Raise if a C entry of ``csrc/<name>.cu`` returned a non-zero
     ``cudaError_t``."""

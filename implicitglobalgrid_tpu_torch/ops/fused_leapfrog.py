@@ -123,13 +123,8 @@ def grid(shape, tile) -> tuple[int, int, int]:
 def resident_blocks(source: str, shape, k: int, itemsize: int) -> int:
     """Blocks of kernel ``csrc/<source>.cu`` resident per SM at this shape's
     tile (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; needs the card)."""
-    fn = _kernels.entry(source, f"igg_{source}_occupancy",
-                        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
-    blocks = ctypes.c_int(0)
     _, by, bz = tile_for(shape, k, itemsize)
-    _kernels.check(source, fn(itemsize, shape[1], shape[2], k, by, bz, ctypes.byref(blocks)),
-                   f"{source} occupancy")
-    return blocks.value
+    return _kernels.resident_blocks(source, itemsize, shape[1], shape[2], k, by, bz)
 
 
 def validate(cells, faces, k: int, what: str) -> None:

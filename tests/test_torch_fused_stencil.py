@@ -107,10 +107,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(T, Cp, k, match):
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("k", [2, 4, 6, 8])
 def test_tiles_fit_shared_memory(k, itemsize):
-    bx, by, bz = fs.tile_for((512, 512, 512), k, itemsize)
-    assert 3 * (bx + 2 * k) * (by + 2 * k) * (bz + 2 * k) * itemsize <= 232448
+    tile = fs.tile_for((512, 512, 512), k, itemsize)
+    assert tile[0] == 512  # the block marches all of x
+    assert fs.window_bytes((512, 512, 512), k, tile, itemsize) <= 232448
+    assert fs.plane_slots((512, 512, 512), k, tile, itemsize) <= fs.slots(itemsize, k) * fs.THREADS
     # a small block clips the window: the preferred tile fits
-    assert fs.tile_for((12, 12, 12), k, itemsize) == fs._TILES[0]
+    assert fs.tile_for((12, 12, 12), k, itemsize) == (12, *fs._TILES[0])
 
 
 def test_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
@@ -131,11 +133,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,k", [(torch.float32, 2), (torch.float32, 4),
-                                     (torch.float32, 8), (torch.float64, 4)])
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype, k):
+@pytest.mark.parametrize("shape,dtype,k", [
+    ((37, 45, 70), torch.float32, 2), ((37, 45, 70), torch.float32, 4),
+    ((37, 45, 70), torch.float32, 8), ((37, 45, 70), torch.float64, 4),
+    ((12, 12, 12), torch.float32, 4), ((5, 64, 96), torch.float32, 4),
+])
+def test_cuda_kernel_matches_plain_version(cuda_device, shape, dtype, k):
+    """Ragged against every tile, a block smaller than one window, and an x
+    extent shorter than the plane rings."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    shape = (37, 45, 70)  # ragged against every tile
     T = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
     Cp = 1 + torch.rand(shape, generator=gen, device=cuda_device, dtype=dtype)
     before = fs.launches
@@ -144,3 +150,4 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, k):
     assert fs.launches == before + 1
     want = fs.fused_diffusion_steps_reference(T, Cp, k, 0.12, 0.06, 0.03)
     assert torch.equal(got, want)  # --fmad=false: bit-exact
+    assert _ring_equal(got.cpu().numpy(), T.cpu().numpy())
