@@ -46,6 +46,26 @@ and then prints no result line):
    (max |diff| / max(scale, 1) < 2e-5 per field); then the ragged npt=10
    (chunks [6, 4]), non-periodic, against the same plain cadence.
 
+7. The overlap schedules, 256^3 float32.  (a) Each kernel at its main
+   path's k (diffusion 4, leapfrog and PT 6) at 256^3 and at (37, 45, 70):
+   the ring launch and the mid launch, on two streams after the same inputs,
+   against one ``"all"`` launch at the same tile, bit for bit (ring01/mid01
+   at 256^3; ring0, ring1 and ring01 at the ragged shape), then at 256^3 the
+   times of the ``"all"`` launch (at its own tile and at the split tile),
+   the ring launch alone, the mid launch alone, ring then mid on one stream,
+   and ring and mid on two streams.  (b) Each model's pipelined
+   cadence (``pipelined=True``, which must admit the split) against
+   ``pipelined=False``, bit for bit, on x/y/z-periodic twins of the main
+   configs: diffusion overlap 8 ``fused_k=4`` (16 steps), acoustic overlap
+   12 ``fused_k=6`` (12 steps), porous npt=12 overlap 14 ``fused_k=6`` (1
+   step, chunks [6, 6]); launch counts set to 0 before each and read after
+   (a ring and a mid launch per group), ms per step of both schedules.
+   (c) Diffusion ``make_step(hide_comm=True)`` against ``make_step``, 4
+   steps, bit for bit, and the ms per step of both.  Phases 3, 5 and 6 run
+   the default ``pipelined`` (auto), which on one card must resolve to the
+   serialized schedule (one launch per group): every x/y partner is the
+   block itself, so there is no transfer to hide.
+
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 and
@@ -287,7 +307,8 @@ def main() -> None:
     torch.cuda.synchronize()
     diffusion_counts = counts()
     if diffusion_counts["fused_diffusion_steps"] != nsteps // k:
-        fail(f"diffusion main path launched {diffusion_counts}, expected {nsteps // k} diffusion")
+        fail(f"diffusion main path launched {diffusion_counts}, expected {nsteps // k} diffusion "
+             "(the serialized schedule: auto on one card)")
     T_p, _ = plain(T0, Cp)
     torch.cuda.synchronize()
     if not torch.isfinite(T_f).all():
@@ -501,12 +522,167 @@ def main() -> None:
                "256^3 f32 npt=12 periodic z overlap 14", main=True)
     porous_run(10, {}, "256^3 f32 npt=10 non-periodic", main=False)
 
+    phase7(torch, igg, modules, reset_counts, counts, card)
+
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+def phase7(torch, igg, modules, reset_counts, counts, card) -> None:
+    """Phase 7: the overlap schedules at 256^3 f32 (see the module docstring)."""
+    from implicitglobalgrid_tpu_torch.models import _fused, acoustic3d, diffusion3d
+    from implicitglobalgrid_tpu_torch.models import porous_convection3d
+    from implicitglobalgrid_tpu_torch.ops import overlap
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f32 = torch.float32
+    side = torch.cuda.Stream(dev)
+    n = 256
+
+    # -- 7a: ring + mid (concurrent) against one "all" launch, bit for bit ----
+    lf = (0.05, 0.04, 0.03, 0.07, 10.0, 6.6, 5.0)
+    pt = (0.5, 10.0, 6.6, 5.0, 1.0, 3e-4)
+    diff = (1 / 8.1, 0.5 / 8.1, 0.25 / 8.1)
+    fs, fl, fp = (modules[m] for m in ("fused_diffusion_steps", "fused_leapfrog_steps",
+                                        "fused_pt_iterations"))
+
+    def inputs(name, sh):
+        cells = [torch.randn(sh, generator=gen, device=dev, dtype=f32) for _ in range(2)]
+        if name == "fused_diffusion_steps":
+            return (cells[0], 1 + cells[1].abs())
+        faces = [0.1 * torch.randn(s, generator=gen, device=dev, dtype=f32)
+                 for s in fl.face_shapes(sh)]
+        return (*cells[name == "fused_leapfrog_steps":], *faces)
+
+    calls = {
+        "fused_diffusion_steps": (fs, 4, lambda ins, k, **kw: (fs.fused_diffusion_steps(
+            *ins, k, *diff, **kw),)),
+        "fused_leapfrog_steps": (fl, 6, lambda ins, k, **kw: fl.fused_leapfrog_steps(
+            *ins, k, *lf, **kw)),
+        "fused_pt_iterations": (fl, 6, lambda ins, k, **kw: fp.fused_pt_iterations(
+            *ins, k, *pt, **kw)),
+    }
+
+    def split(call, ins, k, tile, sel, concurrent=True):
+        """Ring on the current stream, mid on ``side`` (both after the
+        inputs), or both in order on the current stream."""
+        main = torch.cuda.current_stream()
+        side.wait_stream(main)
+        ring = call(ins, k, tile=tile, tile_sel="ring" + sel)
+        if not concurrent:
+            return call(ins, k, tile=tile, tile_sel="mid" + sel, carry_in=ring)
+        with torch.cuda.stream(side):
+            out = call(ins, k, tile=tile, tile_sel="mid" + sel, carry_in=ring)
+        main.wait_stream(side)
+        return out
+
+    for name, (mod, k, call) in calls.items():
+        for sh, sels in (((n, n, n), ("01",)), ((37, 45, 70), ("0", "1", "01"))):
+            ins = inputs(name, sh)
+            _, by, bz = mod.tile_for(sh, k, 4)
+            tile = (-(-sh[0] // _fused.PIPELINED_X_SEGMENTS), by, bz)
+            ncx, ncy = overlap.tile_grid(sh[:2], tile)
+            want = call(ins, k, tile=tile)
+            for sel in sels:
+                got = split(call, ins, k, tile, sel)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                segs = [min(tile[0], sh[0] - i * tile[0]) for i in range(ncx)]
+                print(f"phase 7a: {name} f32 k={k} {sh} tile {tile}: ring{sel} "
+                      f"{overlap.tile_subset_count('ring' + sel, ncx, ncy)} + mid{sel} "
+                      f"{overlap.tile_subset_count('mid' + sel, ncx, ncy)} of {ncx * ncy} "
+                      f"(x segments {segs}, {-(-sh[2] // bz)} z tiles each), concurrent: "
+                      f"{'bit-exact' if same else 'DIFFERS'} against one 'all' launch")
+                if not same:
+                    fail(f"{name} {sh}: ring{sel} + mid{sel} differs from the 'all' launch")
+            if sh[0] == n:
+                ms = {
+                    "all": cuda_ms(torch, lambda: call(ins, k), reps=10),
+                    "all at the split tile": cuda_ms(torch, lambda: call(ins, k, tile=tile),
+                                                     reps=10),
+                    "ring alone": cuda_ms(torch, lambda: call(ins, k, tile=tile,
+                                                              tile_sel="ring01"), reps=10),
+                    "mid alone": cuda_ms(torch, lambda: call(ins, k, tile=tile, tile_sel="mid01",
+                                                             carry_in=want), reps=10),
+                    "ring then mid, one stream": cuda_ms(
+                        torch, lambda: split(call, ins, k, tile, "01", False), reps=10),
+                    "ring || mid, two streams": cuda_ms(
+                        torch, lambda: split(call, ins, k, tile, "01"), reps=10),
+                }
+                print(f"phase 7a: {name} 256^3 f32 k={k} ms per launch: "
+                      + ", ".join(f"{key} {v!r}" for key, v in ms.items()) + f" {card}")
+            del ins, want, got
+
+    # -- 7b: the pipelined cadences against the serialized ones ---------------
+    def cadence(label, model, kmod, setup_kw, nsteps, k, stagger):
+        state, params = model.setup(n, n, n, dtype=f32, quiet=True, periodx=1, periody=1,
+                                    periodz=1, **setup_kw)
+        shape = tuple(state[0].shape)
+        err = model.pipelined_support_error(shape, k, f32, device=dev)
+        if err is not None:
+            fail(f"{label}: the pipelined split is not admissible: {err}")
+        _, _, tile = _fused.split_selector(kmod, shape, k, k, f32, None, None, (0, 1), stagger,
+                                           device=dev)
+        piped = model.make_multi_step(params, nsteps, fused_k=k, pipelined=True)
+        serial = model.make_multi_step(params, nsteps, fused_k=k, pipelined=False)
+        piped(*state)  # warm-up (allocator, streams)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = piped(*state)
+        torch.cuda.synchronize()
+        c = counts()
+        want = serial(*state)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        p_ms = cuda_ms(torch, lambda: piped(*state), reps=3, warmup=1) / nsteps
+        s_ms = cuda_ms(torch, lambda: serial(*state), reps=3, warmup=1) / nsteps
+        print(f"phase 7b: {label}: tile {tile}, launches {c} (ring + mid per group); "
+              f"pipelined vs serialized {'bit-exact' if same else 'DIFFERS'}; pipelined "
+              f"{p_ms!r} ms/step, serialized {s_ms!r} ms/step {card}")
+        if not (same and finite):
+            fail(f"{label}: pipelined cadence differs from the serialized one (finite {finite})")
+        igg.finalize_global_grid()
+        return c
+
+    ov = lambda o: dict(overlapx=o, overlapy=o, overlapz=o)  # noqa: E731
+    c = cadence("diffusion 256^3 f32 periodic x/y/z overlap 8, 16 steps fused_k=4",
+                diffusion3d, fs, ov(8), 16, 4, 0)
+    if c["fused_diffusion_steps"] != 2 * 4:
+        fail(f"pipelined diffusion launched {c}, expected 2 per group")
+    c = cadence("acoustic 256^3 f32 periodic x/y/z overlap 12, 12 steps fused_k=6",
+                acoustic3d, fl, ov(12), 12, 6, 1)
+    if c["fused_leapfrog_steps"] != 2 * 2:
+        fail(f"pipelined acoustic launched {c}, expected 2 per group")
+    c = cadence("porous 256^3 f32 npt=12 periodic x/y/z overlap 14, 1 step fused_k=6 "
+                "(chunks [6, 6])", porous_convection3d, fp, dict(npt=12, **ov(14)), 1, 6, 1)
+    if c["fused_pt_iterations"] != 2 * 2:
+        fail(f"pipelined porous launched {c}, expected 2 per chunk")
+
+    # -- 7c: hide_comm against the plain step ---------------------------------
+    (T0, Cp), params = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, periodx=1,
+                                         periody=1, periodz=1, hide_comm=True, **ov(8))
+    hidden = diffusion3d.make_step(params)
+    plain = diffusion3d.make_step(diffusion3d.Params(**{**params.__dict__, "hide_comm": False}))
+    T_h, T_p = T0, T0
+    for _ in range(4):
+        T_h, _ = hidden(T_h, Cp)
+        T_p, _ = plain(T_p, Cp)
+    torch.cuda.synchronize()
+    same = torch.equal(T_h, T_p)
+    h_ms = cuda_ms(torch, lambda: hidden(T0, Cp), reps=10)
+    p_ms = cuda_ms(torch, lambda: plain(T0, Cp), reps=10)
+    print(f"phase 7c: diffusion 256^3 f32 periodic x/y/z, 4 steps make_step(hide_comm=True) vs "
+          f"make_step: {'bit-exact' if same else 'DIFFERS'}; hide_comm {h_ms!r} ms/step, "
+          f"plain {p_ms!r} ms/step {card}")
+    if not same:
+        fail("diffusion hide_comm step differs from the plain step")
+    igg.finalize_global_grid()
 
 
 if __name__ == "__main__":

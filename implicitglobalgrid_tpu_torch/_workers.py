@@ -10,11 +10,16 @@ worker imports torch, numpy and this package only.
 
 Tasks:
 
-* ``"halo"``: `update_halo(*fields, width=...)` on the named fields.
+* ``"halo"``: `update_halo(*fields, width=...)` on the named fields; with
+  ``"split": true`` also `begin_slab_exchange` + `finish_slab_exchange` on
+  copies of them, saved as ``<name>_split``.
 * ``"multi_step"``, ``"acoustic"``, ``"porous"``: ``make_multi_step(params,
-  nsteps, ...)`` of ``diffusion3d`` on ``(T, Cp)``, of ``acoustic3d`` on
+  nsteps, **step)`` of ``diffusion3d`` on ``(T, Cp)``, of ``acoustic3d`` on
   ``(P, Vx, Vy, Vz)``, of ``porous_convection3d`` on ``(T, Pf, qDx, qDy,
-  qDz)``; every field of the final state is saved.
+  qDz)``; every field of the final state is saved.  ``"steps"``: a list of
+  such ``step`` keyword sets (``fused_k``, ``fused_tile``, ``pipelined``,
+  ...; ``hide_comm`` sets the params' flag), each run from the same inputs
+  and saved as ``<name><i>``.
 
 Run one rank by hand with ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json`` and the environment variables above set.
@@ -105,8 +110,11 @@ def spawn(task: dict, nprocs: int, workdir, *, timeout: float = 120.0) -> list[d
 def _run(task: dict) -> dict:
     import torch
 
+    import dataclasses
+
     from . import finalize_global_grid, init_global_grid, update_halo
     from .models import acoustic3d, diffusion3d, porous_convection3d
+    from .ops.halo import begin_slab_exchange, finish_slab_exchange
     from .utils.fields import block_from_numpy
 
     models = {
@@ -125,16 +133,32 @@ def _run(task: dict) -> dict:
                 block_from_numpy(inputs[name], tuple(shape))
                 for name, shape in zip(task["fields"], task["shapes"])
             ]
-            update_halo(*fields, width=task.get("width", 1))
-            return {name: A.numpy() for name, A in zip(task["fields"], fields)}
+            width = task.get("width", 1)
+            out = {}
+            if task.get("split"):
+                copies = [A.clone() for A in fields]
+                pend = begin_slab_exchange(copies, range(3), width=width)
+                finish_slab_exchange(copies, pend)
+                out = {f"{name}_split": A.numpy() for name, A in zip(task["fields"], copies)}
+            update_halo(*fields, width=width)
+            return {**out, **{name: A.numpy() for name, A in zip(task["fields"], fields)}}
         if task["kind"] in models:
             model, names = models[task["kind"]]
             kw = dict(task["params"])
             kw["dtype"] = dtypes[kw["dtype"]]
             params = model.Params(**kw)
             state = model.state_from_numpy(*(inputs[n] for n in names))
-            state = model.make_multi_step(params, task["nsteps"], **task.get("step", {}))(*state)
-            return {n: a.numpy() for n, a in zip(names, state)}
+            if "steps" not in task:
+                state = model.make_multi_step(params, task["nsteps"], **task.get("step", {}))(
+                    *state)
+                return {n: a.numpy() for n, a in zip(names, state)}
+            out = {}
+            for i, step in enumerate(task["steps"]):
+                step = dict(step)
+                p = dataclasses.replace(params, hide_comm=step.pop("hide_comm", params.hide_comm))
+                got = model.make_multi_step(p, task["nsteps"], **step)(*state)
+                out.update({f"{n}{i}": a.numpy() for n, a in zip(names, got)})
+            return out
         raise ValueError(f"unknown task kind {task['kind']!r}")
     finally:
         finalize_global_grid()

@@ -18,7 +18,9 @@
 // Geometry (staggered.cuh's Axis and Window): a block owns a (by, bz) tile of
 // y and z and marches along x (all of it, or a segment of bx planes where the
 // wrapper cuts x to fill the card); its window is the tile plus k cells a
-// side, clipped to the array.  A window edge that is an array face is the
+// side, clipped to the array.  A subset launch (the ring or mid pass of the
+// pipelined group schedule) runs the blocks of some (x segment, y tile)
+// pairs only; each still steps its whole window and stores what it owns.  A window edge that is an array face is the
 // frozen ring, so cells next to it stay exact; an interior window edge goes
 // stale one cell deeper per step.  Level s therefore updates Axis::side_lo(s)
 // .. side_hi(s) along each axis (one cell inside a face edge, s cells inside
@@ -112,14 +114,15 @@ __device__ __forceinline__ void put(T* p, const T (&v)[E]) {
 // 12+e) and whether it is owned (bit 14+e).
 enum : int { kCap = igg::kAll, kWarp = 8, kValid = 1 << 12, kOwned = 1 << 14 };
 
-template <typename T, int K>
+// kSubset: a subset launch (the tiles of selector sel, igg::TileSel).
+template <typename T, int K, bool kSubset>
 __global__ void __launch_bounds__(kThreads)
 fused_diffusion_kernel(const T* __restrict__ tin, const T* __restrict__ cp,
                        T* __restrict__ tout, int n0, int n1, int n2, T cx, T cy, T cz,
-                       int bx, int by, int bz) {
+                       int bx, int by, int bz, int sel) {
   constexpr int E = kElems<T, K>, S = kSlots<T, K>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Window w = Window::make(n0, n1, n2, K, bx, by, bz);
+  const Window w = Window::make<kSubset>(n0, n1, n2, K, bx, by, bz, sel);
   const int ex = w.x.e, ez = w.z.e, rz = row_stride(ez, E), ps = w.y.e * rz;
   const int64_t plane = (int64_t)n1 * n2;
   // A guard of rz + E values before the first plane and after the last keeps
@@ -288,35 +291,44 @@ size_t smem_bytes(int n1, int n2, int by, int bz) {
   return ((2 * kRing + 2 * (K - 1)) * ey * rz + 2 * (rz + E)) * sizeof(T);
 }
 
-template <typename T, int K>
+template <typename T, int K, bool kSubset>
 cudaError_t prepare(int n1, int n2, int by, int bz, int* smem) {
   *smem = (int)smem_bytes<T, K>(n1, n2, by, bz);
   constexpr int kMaxDevices = 64;
   static int smem_cap[kMaxDevices] = {};
-  return igg::ensure_smem(fused_diffusion_kernel<T, K>, smem_cap, kMaxDevices, *smem);
+  return igg::ensure_smem(fused_diffusion_kernel<T, K, kSubset>, smem_cap, kMaxDevices, *smem);
 }
 
-template <typename T, int K>
+template <typename T, int K, bool kSubset>
 int launch_k(const void* tin, const void* cp, void* tout, int n0, int n1, int n2, T cx, T cy,
-             T cz, int bx, int by, int bz, void* stream) {
+             T cz, int bx, int by, int bz, int sel, void* stream) {
   int smem = 0;
-  cudaError_t err = prepare<T, K>(n1, n2, by, bz, &smem);
+  cudaError_t err = prepare<T, K, kSubset>(n1, n2, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n2 + bz - 1) / bz, (n1 + by - 1) / by, (n0 + bx - 1) / bx);
-  fused_diffusion_kernel<T, K><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid = igg::launch_grid(n0, n1, n2, bx, by, bz, sel);
+  fused_diffusion_kernel<T, K, kSubset><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(tin), static_cast<const T*>(cp), static_cast<T*>(tout), n0, n1, n2,
-      cx, cy, cz, bx, by, bz);
+      cx, cy, cz, bx, by, bz, sel);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// sel: the tile subset (igg::TileSel; kSubset iff it is not kAllTiles).
+template <typename T, bool kSubset>
 int launch(const void* tin, const void* cp, void* tout, int n0, int n1, int n2, int k, T cx,
-           T cy, T cz, int bx, int by, int bz, void* stream) {
+           T cy, T cz, int bx, int by, int bz, int sel, void* stream) {
   switch (k) {
-    case 2: return launch_k<T, 2>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, stream);
-    case 4: return launch_k<T, 4>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, stream);
-    case 6: return launch_k<T, 6>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, stream);
-    case 8: return launch_k<T, 8>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, stream);
+    case 2:
+      return launch_k<T, 2, kSubset>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
+                                     stream);
+    case 4:
+      return launch_k<T, 4, kSubset>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
+                                     stream);
+    case 6:
+      return launch_k<T, 6, kSubset>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
+                                     stream);
+    case 8:
+      return launch_k<T, 8, kSubset>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
+                                     stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -324,10 +336,10 @@ int launch(const void* tin, const void* cp, void* tout, int n0, int n1, int n2, 
 template <typename T, int K>
 int occupancy_k(int n1, int n2, int by, int bz, int* blocks) {
   int smem = 0;
-  cudaError_t err = prepare<T, K>(n1, n2, by, bz, &smem);
+  cudaError_t err = prepare<T, K, false>(n1, n2, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fused_diffusion_kernel<T, K>, kThreads, smem);
+      blocks, fused_diffusion_kernel<T, K, false>, kThreads, smem);
 }
 
 template <typename T>
@@ -349,13 +361,31 @@ extern "C" {
 int igg_fused_diffusion_f32(const void* tin, const void* cp, void* tout, int n0,
                             int n1, int n2, int k, float cx, float cy, float cz,
                             int bx, int by, int bz, void* stream) {
-  return launch<float>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz, stream);
+  return launch<float, false>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz,
+                              igg::kAllTiles, stream);
 }
 
 int igg_fused_diffusion_f64(const void* tin, const void* cp, void* tout, int n0,
                             int n1, int n2, int k, double cx, double cy, double cz,
                             int bx, int by, int bz, void* stream) {
-  return launch<double>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz, stream);
+  return launch<double, false>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz,
+                               igg::kAllTiles, stream);
+}
+
+// The subset launches: sel is a ring or mid selector (igg::TileSel).
+int igg_fused_diffusion_subset_f32(const void* tin, const void* cp, void* tout, int n0,
+                                   int n1, int n2, int k, float cx, float cy, float cz,
+                                   int bx, int by, int bz, int sel, void* stream) {
+  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  return launch<float, true>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz, sel, stream);
+}
+
+int igg_fused_diffusion_subset_f64(const void* tin, const void* cp, void* tout, int n0,
+                                   int n1, int n2, int k, double cx, double cy, double cz,
+                                   int bx, int by, int bz, int sel, void* stream) {
+  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  return launch<double, true>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz, sel,
+                              stream);
 }
 
 // Resident blocks per SM of the kernel for this item size, k and tile, into

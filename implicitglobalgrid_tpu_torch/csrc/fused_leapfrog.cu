@@ -47,51 +47,52 @@ struct Leapfrog {
   }
 };
 
-template <typename Real>
+template <typename Real, bool kSubset>
 __global__ void __launch_bounds__(igg::kThreads)
 fused_leapfrog_kernel(const Real* __restrict__ p_in, const Real* __restrict__ vx_in,
                       const Real* __restrict__ vy_in, const Real* __restrict__ vz_in,
                       Real* __restrict__ p_out, Real* __restrict__ vx_out,
                       Real* __restrict__ vy_out, Real* __restrict__ vz_out, int n0, int n1,
-                      int n2, int k, Leapfrog<Real> ops, int bx, int by, int bz) {
+                      int n2, int k, Leapfrog<Real> ops, int bx, int by, int bz, int sel) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const igg::Window w = igg::Window::make(n0, n1, n2, k, bx, by, bz);
+  const igg::Window w = igg::Window::make<kSubset>(n0, n1, n2, k, bx, by, bz, sel);
   igg::march(w, k, reinterpret_cast<Real*>(smem_raw), p_in, vx_in, vy_in, vz_in, p_out, vx_out,
              vy_out, vz_out, ops);
 }
 
-template <typename Real>
+template <typename Real, bool kSubset>
 cudaError_t prepare(int n1, int n2, int k, int by, int bz, int* smem) {
   *smem = (int)igg::ring_bytes<Real>(n1, n2, k, by, bz);
   constexpr int kMaxDevices = 64;
   static int smem_cap[kMaxDevices] = {};
-  return igg::ensure_smem(fused_leapfrog_kernel<Real>, smem_cap, kMaxDevices, *smem);
+  return igg::ensure_smem(fused_leapfrog_kernel<Real, kSubset>, smem_cap, kMaxDevices, *smem);
 }
 
-template <typename Real>
+// sel: the tile subset (igg::TileSel; kSubset iff it is not kAllTiles).
+template <typename Real, bool kSubset>
 int launch(const void* p, const void* vx, const void* vy, const void* vz, void* p_out,
            void* vx_out, void* vy_out, void* vz_out, int n0, int n1, int n2, int k, Real cax,
            Real cay, Real caz, Real b, Real idx, Real idy, Real idz, int bx, int by, int bz,
-           void* stream) {
+           int sel, void* stream) {
   int smem = 0;
-  cudaError_t err = prepare<Real>(n1, n2, k, by, bz, &smem);
+  cudaError_t err = prepare<Real, kSubset>(n1, n2, k, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n2 + bz - 1) / bz, (n1 + by - 1) / by, (n0 + bx - 1) / bx);
-  fused_leapfrog_kernel<Real><<<grid, igg::kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid = igg::launch_grid(n0, n1, n2, bx, by, bz, sel);
+  fused_leapfrog_kernel<Real, kSubset><<<grid, igg::kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const Real*>(p), static_cast<const Real*>(vx), static_cast<const Real*>(vy),
       static_cast<const Real*>(vz), static_cast<Real*>(p_out), static_cast<Real*>(vx_out),
       static_cast<Real*>(vy_out), static_cast<Real*>(vz_out), n0, n1, n2, k,
-      Leapfrog<Real>{cax, cay, caz, b, idx, idy, idz}, bx, by, bz);
+      Leapfrog<Real>{cax, cay, caz, b, idx, idy, idz}, bx, by, bz, sel);
   return (int)cudaGetLastError();
 }
 
 template <typename Real>
 int occupancy(int n1, int n2, int k, int by, int bz, int* blocks) {
   int smem = 0;
-  cudaError_t err = prepare<Real>(n1, n2, k, by, bz, &smem);
+  cudaError_t err = prepare<Real, false>(n1, n2, k, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_leapfrog_kernel<Real>,
-                                                            igg::kThreads, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fused_leapfrog_kernel<Real, false>, igg::kThreads, smem);
 }
 
 }  // namespace
@@ -104,8 +105,8 @@ int igg_fused_leapfrog_f32(const void* p, const void* vx, const void* vy, const 
                            int n1, int n2, int k, float cax, float cay, float caz, float b,
                            float idx, float idy, float idz, int bx, int by, int bz,
                            void* stream) {
-  return launch<float>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax, cay,
-                       caz, b, idx, idy, idz, bx, by, bz, stream);
+  return launch<float, false>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax,
+                              cay, caz, b, idx, idy, idz, bx, by, bz, igg::kAllTiles, stream);
 }
 
 int igg_fused_leapfrog_f64(const void* p, const void* vx, const void* vy, const void* vz,
@@ -113,8 +114,29 @@ int igg_fused_leapfrog_f64(const void* p, const void* vx, const void* vy, const 
                            int n1, int n2, int k, double cax, double cay, double caz, double b,
                            double idx, double idy, double idz, int bx, int by, int bz,
                            void* stream) {
-  return launch<double>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax, cay,
-                        caz, b, idx, idy, idz, bx, by, bz, stream);
+  return launch<double, false>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax,
+                               cay, caz, b, idx, idy, idz, bx, by, bz, igg::kAllTiles, stream);
+}
+
+// The subset launches: sel is a ring or mid selector (igg::TileSel).
+int igg_fused_leapfrog_subset_f32(const void* p, const void* vx, const void* vy, const void* vz,
+                                  void* p_out, void* vx_out, void* vy_out, void* vz_out, int n0,
+                                  int n1, int n2, int k, float cax, float cay, float caz,
+                                  float b, float idx, float idy, float idz, int bx, int by,
+                                  int bz, int sel, void* stream) {
+  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  return launch<float, true>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax,
+                             cay, caz, b, idx, idy, idz, bx, by, bz, sel, stream);
+}
+
+int igg_fused_leapfrog_subset_f64(const void* p, const void* vx, const void* vy, const void* vz,
+                                  void* p_out, void* vx_out, void* vy_out, void* vz_out, int n0,
+                                  int n1, int n2, int k, double cax, double cay, double caz,
+                                  double b, double idx, double idy, double idz, int bx, int by,
+                                  int bz, int sel, void* stream) {
+  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  return launch<double, true>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax,
+                              cay, caz, b, idx, idy, idz, bx, by, bz, sel, stream);
 }
 
 // Resident blocks per SM of the kernel for this item size and tile, into

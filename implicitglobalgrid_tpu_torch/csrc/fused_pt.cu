@@ -57,50 +57,51 @@ struct Pt {
   }
 };
 
-template <typename Real>
+template <typename Real, bool kSubset>
 __global__ void __launch_bounds__(igg::kThreads)
 fused_pt_kernel(const Real* __restrict__ p_in, const Real* __restrict__ qx_in,
                 const Real* __restrict__ qy_in, const Real* __restrict__ qz_in,
                 Real* __restrict__ p_out, Real* __restrict__ qx_out, Real* __restrict__ qy_out,
                 Real* __restrict__ qz_out, int n0, int n1, int n2, int k, Pt<Real> ops, int bx,
-                int by, int bz) {
+                int by, int bz, int sel) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const igg::Window w = igg::Window::make(n0, n1, n2, k, bx, by, bz);
+  const igg::Window w = igg::Window::make<kSubset>(n0, n1, n2, k, bx, by, bz, sel);
   igg::march(w, k, reinterpret_cast<Real*>(smem_raw), p_in, qx_in, qy_in, qz_in, p_out, qx_out,
              qy_out, qz_out, ops);
 }
 
-template <typename Real>
+template <typename Real, bool kSubset>
 cudaError_t prepare(int n1, int n2, int k, int by, int bz, int* smem) {
   *smem = (int)igg::ring_bytes<Real>(n1, n2, k, by, bz);
   constexpr int kMaxDevices = 64;
   static int smem_cap[kMaxDevices] = {};
-  return igg::ensure_smem(fused_pt_kernel<Real>, smem_cap, kMaxDevices, *smem);
+  return igg::ensure_smem(fused_pt_kernel<Real, kSubset>, smem_cap, kMaxDevices, *smem);
 }
 
-template <typename Real>
+// sel: the tile subset (igg::TileSel; kSubset iff it is not kAllTiles).
+template <typename Real, bool kSubset>
 int launch(const void* t, const void* p, const void* qx, const void* qy, const void* qz,
            void* p_out, void* qx_out, void* qy_out, void* qz_out, int n0, int n1, int n2, int k,
            Real th, Real idx, Real idy, Real idz, Real ralam, Real bp, int bx, int by, int bz,
-           void* stream) {
+           int sel, void* stream) {
   int smem = 0;
-  cudaError_t err = prepare<Real>(n1, n2, k, by, bz, &smem);
+  cudaError_t err = prepare<Real, kSubset>(n1, n2, k, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n2 + bz - 1) / bz, (n1 + by - 1) / by, (n0 + bx - 1) / bx);
-  fused_pt_kernel<Real><<<grid, igg::kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid = igg::launch_grid(n0, n1, n2, bx, by, bz, sel);
+  fused_pt_kernel<Real, kSubset><<<grid, igg::kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const Real*>(p), static_cast<const Real*>(qx), static_cast<const Real*>(qy),
       static_cast<const Real*>(qz), static_cast<Real*>(p_out), static_cast<Real*>(qx_out),
       static_cast<Real*>(qy_out), static_cast<Real*>(qz_out), n0, n1, n2, k,
-      Pt<Real>{static_cast<const Real*>(t), th, idx, idy, idz, ralam, bp}, bx, by, bz);
+      Pt<Real>{static_cast<const Real*>(t), th, idx, idy, idz, ralam, bp}, bx, by, bz, sel);
   return (int)cudaGetLastError();
 }
 
 template <typename Real>
 int occupancy(int n1, int n2, int k, int by, int bz, int* blocks) {
   int smem = 0;
-  cudaError_t err = prepare<Real>(n1, n2, k, by, bz, &smem);
+  cudaError_t err = prepare<Real, false>(n1, n2, k, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_pt_kernel<Real>,
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_pt_kernel<Real, false>,
                                                             igg::kThreads, smem);
 }
 
@@ -113,8 +114,8 @@ int igg_fused_pt_f32(const void* t, const void* p, const void* qx, const void* q
                      const void* qz, void* p_out, void* qx_out, void* qy_out, void* qz_out,
                      int n0, int n1, int n2, int k, float th, float idx, float idy, float idz,
                      float ralam, float bp, int bx, int by, int bz, void* stream) {
-  return launch<float>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k, th, idx,
-                       idy, idz, ralam, bp, bx, by, bz, stream);
+  return launch<float, false>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k, th,
+                              idx, idy, idz, ralam, bp, bx, by, bz, igg::kAllTiles, stream);
 }
 
 int igg_fused_pt_f64(const void* t, const void* p, const void* qx, const void* qy,
@@ -122,8 +123,29 @@ int igg_fused_pt_f64(const void* t, const void* p, const void* qx, const void* q
                      int n0, int n1, int n2, int k, double th, double idx, double idy,
                      double idz, double ralam, double bp, int bx, int by, int bz,
                      void* stream) {
-  return launch<double>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k, th,
-                        idx, idy, idz, ralam, bp, bx, by, bz, stream);
+  return launch<double, false>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k,
+                               th, idx, idy, idz, ralam, bp, bx, by, bz, igg::kAllTiles, stream);
+}
+
+// The subset launches: sel is a ring or mid selector (igg::TileSel).
+int igg_fused_pt_subset_f32(const void* t, const void* p, const void* qx, const void* qy,
+                            const void* qz, void* p_out, void* qx_out, void* qy_out,
+                            void* qz_out, int n0, int n1, int n2, int k, float th, float idx,
+                            float idy, float idz, float ralam, float bp, int bx, int by, int bz,
+                            int sel, void* stream) {
+  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  return launch<float, true>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k, th,
+                             idx, idy, idz, ralam, bp, bx, by, bz, sel, stream);
+}
+
+int igg_fused_pt_subset_f64(const void* t, const void* p, const void* qx, const void* qy,
+                            const void* qz, void* p_out, void* qx_out, void* qy_out,
+                            void* qz_out, int n0, int n1, int n2, int k, double th, double idx,
+                            double idy, double idz, double ralam, double bp, int bx, int by,
+                            int bz, int sel, void* stream) {
+  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  return launch<double, true>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k,
+                              th, idx, idy, idz, ralam, bp, bx, by, bz, sel, stream);
 }
 
 // Resident blocks per SM of the kernel for this item size and tile, into

@@ -110,12 +110,65 @@ struct Axis {
   }
 };
 
+// Tile subsets of a split launch (the ring and mid passes of the pipelined
+// group schedule): ops/overlap.py's TILE_SELS in the same order, so a
+// selector's code is its index there (0: every tile).  A tile is an (x
+// segment, y tile) pair, numbered t = ix * ncy + iy; every subset takes all
+// z tiles.  subset_count and subset_tile are ops/overlap.py's
+// tile_subset_count and tile_subset_map.
+enum TileSel : int { kAllTiles = 0, kRing0, kMid0, kRing1, kMid1, kRing01, kMid01, kNumSels };
+
+__host__ __device__ inline int subset_count(int sel, int ncx, int ncy) {
+  switch (sel) {
+    case kRing0: return 2 * ncy;
+    case kMid0: return (ncx - 2) * ncy;
+    case kRing1: return 2 * ncx;
+    case kMid1: return ncx * (ncy - 2);
+    case kRing01: return 2 * ncy + 2 * (ncx - 2);
+    case kMid01: return (ncx - 2) * (ncy - 2);
+    default: return ncx * ncy;
+  }
+}
+
+__device__ __forceinline__ int subset_tile(int sel, int i, int ncx, int ncy) {
+  switch (sel) {
+    case kRing0: return i < ncy ? i : (ncx - 1) * ncy + (i - ncy);
+    case kMid0: return ncy + i;
+    case kRing1: return (i / 2) * ncy + (i % 2) * (ncy - 1);
+    case kMid1: return (i / (ncy - 2)) * ncy + 1 + i % (ncy - 2);
+    case kRing01:
+      if (i < ncy) return i;
+      if (i < 2 * ncy) return (ncx - 1) * ncy + (i - ncy);
+      return (1 + (i - 2 * ncy) / 2) * ncy + ((i - 2 * ncy) % 2) * (ncy - 1);
+    case kMid01: return (1 + i / (ncy - 2)) * ncy + 1 + i % (ncy - 2);
+    default: return i;
+  }
+}
+
+// The launch grid: (z tiles, y tiles, x segments), or for a subset launch
+// (z tiles, the subset's tiles, 1).
+inline dim3 launch_grid(int n0, int n1, int n2, int bx, int by, int bz, int sel) {
+  const int gz = (n2 + bz - 1) / bz, gy = (n1 + by - 1) / by, gx = (n0 + bx - 1) / bx;
+  return sel == kAllTiles ? dim3(gz, gy, gx) : dim3(gz, subset_count(sel, gx, gy), 1);
+}
+
 struct Window {
   Axis x, y, z;
 
-  __device__ static Window make(int n0, int n1, int n2, int k, int bx, int by, int bz) {
-    return {Axis::make(n0, blockIdx.z, bx, k), Axis::make(n1, blockIdx.y, by, k),
-            Axis::make(n2, blockIdx.x, bz, k)};
+  // The block's window.  A full launch (kSubset false) reads its x segment
+  // and y tile from blockIdx.z and blockIdx.y; a subset launch maps
+  // blockIdx.y through the subset's tiles.  Either way blockIdx.x is the z
+  // tile.
+  template <bool kSubset>
+  __device__ static Window make(int n0, int n1, int n2, int k, int bx, int by, int bz, int sel) {
+    int ix = blockIdx.z, iy = blockIdx.y;
+    if constexpr (kSubset) {
+      const int ncy = (n1 + by - 1) / by;
+      const int t = subset_tile(sel, blockIdx.y, (n0 + bx - 1) / bx, ncy);
+      ix = t / ncy;
+      iy = t - ix * ncy;
+    }
+    return {Axis::make(n0, ix, bx, k), Axis::make(n1, iy, by, k), Axis::make(n2, blockIdx.x, bz, k)};
   }
 };
 

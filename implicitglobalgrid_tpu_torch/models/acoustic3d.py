@@ -18,7 +18,10 @@ everywhere from post-exchange velocities.  The slab cadences
 (``exchange_every`` and ``fused_k``) exchange all four fields, because ``P``'s
 stale rind is never recomputed between exchanges.  ``fused_k=k`` runs ``k``
 steps per memory pass in the hand-written CUDA kernel
-(`ops.fused_leapfrog`).
+(`ops.fused_leapfrog`), on the pipelined group schedule where the grid
+exchanges in x or y with another block (`models._fused`).  ``hide_comm=True`` overlaps the
+per-step velocity exchange with the interior velocity update
+(`ops.overlap.hide_communication`).
 
 Usage::
 
@@ -35,12 +38,14 @@ from typing import Any
 
 import torch
 
+from ..ops import fused_leapfrog
 from ..ops.fused_leapfrog import fused_leapfrog_steps
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
+from ..ops.overlap import hide_communication
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils.fields import block_from_numpy, coord_fields, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
-from . import _common
+from . import _common, _fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +104,6 @@ def setup(
     ``dtype`` defaults to torch's default dtype; ``ic_scale`` scales the
     initial pulse.
     """
-    if hide_comm:
-        _common.later("hide_comm", "9")
     if init_grid:
         init_global_grid(nx, ny, nz, **grid_kwargs)
     if dtype is None:
@@ -158,19 +161,33 @@ def _pressure_update(params: Params):
 
 def make_step(params: Params, *, batch: bool = False):
     """One leapfrog step ``(P, Vx, Vy, Vz) -> (P, Vx, Vy, Vz)``: velocity
-    update, one 3-field `update_halo`, then P from the fresh velocities."""
+    update, one 3-field `update_halo` (overlapped with the interior velocity
+    update when ``params.hide_comm``), then P from the fresh velocities."""
     if batch:
         _common.later("batch=True", "10")
-    if params.hide_comm:
-        _common.later("hide_comm", "9")
     v_update = _velocity_update(params)
     p_update = _pressure_update(params)
+    if params.hide_comm:
+        v_exchanged = hide_communication(v_update, radius=1)
+    else:
+        def v_exchanged(*s):
+            return update_halo(*v_update(*s))
 
     def step(P, Vx, Vy, Vz):
-        Vx, Vy, Vz = update_halo(*v_update(P, Vx, Vy, Vz))
+        Vx, Vy, Vz = v_exchanged(P, Vx, Vy, Vz)
         return p_update(P, Vx, Vy, Vz), Vx, Vy, Vz
 
     return step
+
+
+def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
+                            device="cpu") -> str | None:
+    """Why the pipelined group schedule cannot split this config, or None
+    (`models._fused.pipelined_support_error` over the leapfrog kernel;
+    ``stagger=1``: the face fields' shape-aware overlap is one deeper than
+    the grid overlap, and their send planes must fit the ring tiles too)."""
+    return _fused.pipelined_support_error(fused_leapfrog, shape, k, dtype, bx, by, gg,
+                                          stagger=1, device=device)
 
 
 def make_multi_step(
@@ -179,6 +196,7 @@ def make_multi_step(
     *,
     exchange_every: int = 1,
     fused_k: int | None = None,
+    fused_tile: tuple[int, int] | None = None,
     pipelined: bool | None = None,
     batch: bool = False,
     coalesce: bool | None = None,
@@ -197,21 +215,27 @@ def make_multi_step(
     halo activity); on a grid with no halo activity the kernel runs alone.
     Requires ``nsteps % k == 0``.  A ``k``, dtype or block the kernel does
     not take raises `ValueError`: there is no plain-cadence fallback.
+    ``fused_tile=(bx, by)``: the kernel's x segment and y tile (``bz`` from
+    its ladder).
 
-    ``pipelined=True``, ``batch=True``, ``coalesce=True`` and ``autotune``
-    come with later slices and raise `NotImplementedError`.
+    ``pipelined`` (default auto): the fused groups' pipelined schedule, as
+    in `models.diffusion3d.make_multi_step` (`pipelined_support_error`).
+
+    ``batch=True``, ``coalesce=True`` and ``autotune`` come with later
+    slices and raise `NotImplementedError`.
     """
     if batch:
         _common.later("batch=True", "10")
     if autotune:
         _common.later("autotune", "15")
-    if pipelined:
-        _common.later("pipelined=True", "9")
     if coalesce:
         _common.later("coalesce=True", "2")
     v_update = _velocity_update(params)
     p_update = _pressure_update(params)
     gg = global_grid()
+    bx, by = fused_tile if fused_tile is not None else (None, None)
+    if (bx is None) != (by is None):
+        raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")
 
     def leapfrog(s):
         Vx, Vy, Vz = v_update(*s)
@@ -232,21 +256,24 @@ def make_multi_step(
                 f"exchange_every={exchange_every} conflicts."
             )
         require_deep_halo(fused_k, gg, what="fused_k")
-        active = any(dim_has_halo_activity(gg, d) for d in range(3))
-        cax = params.dt / params.rho / params.dx
-        cay = params.dt / params.rho / params.dy
-        caz = params.dt / params.rho / params.dz
-        b = params.dt * params.K
-        idx, idy, idz = 1.0 / params.dx, 1.0 / params.dy, 1.0 / params.dz
+        if pipelined and not any(dim_has_halo_activity(gg, d) for d in range(3)):
+            _fused.warn_pipelined_fallback(None, fused_k, "no halo activity: nothing to overlap",
+                                           "acoustic")
+        co = (params.dt / params.rho / params.dx, params.dt / params.rho / params.dy,
+              params.dt / params.rho / params.dz, params.dt * params.K,
+              1.0 / params.dx, 1.0 / params.dy, 1.0 / params.dz)
+        # All four fields exchange: P's stale rind must ride along.
+        run_groups = _fused.fused_groups(
+            fused_leapfrog, "acoustic", [fused_k] * (nsteps // fused_k), k=fused_k,
+            width=fused_k, pipelined=pipelined, fused_tile=fused_tile, stagger=1, gg=gg,
+        )
 
         def fused_multi_step(*s):
-            for _ in range(nsteps // fused_k):
-                s = fused_leapfrog_steps(*s, fused_k, cax, cay, caz, b, idx, idy, idz)
-                # One all-field slab exchange licenses the next k steps: the
-                # kernel's k-deep stale rind is exactly what it refreshes.
-                if active:
-                    s = update_halo(*s, width=fused_k)
-            return s
+            return run_groups(
+                lambda ki, c, tile, **subset: fused_leapfrog_steps(*c, ki, *co, tile=tile,
+                                                                   **subset),
+                s,
+            )
 
         return fused_multi_step
 
@@ -275,6 +302,11 @@ def make_multi_step(
 
         return slab_multi_step
 
+    if pipelined:
+        raise ValueError(
+            "pipelined applies to the group cadences (fused_k or "
+            "exchange_every > 1); the per-step path has no group schedule."
+        )
     step = make_step(params)
 
     def multi_step(*s):

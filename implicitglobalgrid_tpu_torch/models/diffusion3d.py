@@ -11,7 +11,10 @@ implicit global grid:
 Each process advances its own local block; `update_halo` refreshes the
 overlap.  ``make_multi_step(fused_k=k)`` runs ``k`` steps per memory pass in
 the hand-written CUDA kernel (`ops.fused_stencil`), then exchanges a
-width-``k`` slab on a deep-halo grid (``overlap >= 2k``).
+width-``k`` slab on a deep-halo grid (``overlap >= 2k``); on a grid that
+exchanges in x or y with another block the groups run on the pipelined
+schedule (`models._fused`).  ``hide_comm=True`` overlaps the per-step exchange with
+the interior update (`ops.overlap.hide_communication`).
 
 Usage::
 
@@ -28,12 +31,14 @@ from typing import Any
 
 import torch
 
+from ..ops import fused_stencil
 from ..ops.fused_stencil import fused_diffusion_steps
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
+from ..ops.overlap import hide_communication
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils.fields import block_from_numpy, coord_fields, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
-from . import _common
+from . import _common, _fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +113,6 @@ def setup(
     torch's default dtype; ``ic_scale`` scales the initial temperature
     anomaly.
     """
-    if hide_comm:
-        _common.later("hide_comm", "9")
     if init_grid:
         init_global_grid(nx, ny, nz, **grid_kwargs)
     if dtype is None:
@@ -152,18 +155,30 @@ def _diffusion_update(params: Params):
     return update
 
 
+def _one_step(params: Params):
+    """``(T, Cp) -> T``: the update and its exchange, overlapped with
+    ``params.hide_comm`` (bit-identical either way)."""
+    update = _diffusion_update(params)
+    if params.hide_comm:
+        return hide_communication(update, radius=1)
+    return lambda T, Cp: update_halo(update(T, Cp))
+
+
 def make_step(params: Params, *, batch: bool = False):
-    """One time step ``(T, Cp) -> (T, Cp)``: stencil update + halo exchange."""
+    """One time step ``(T, Cp) -> (T, Cp)``: stencil update + halo exchange
+    (overlapped with the interior update when ``params.hide_comm``)."""
     if batch:
         _common.later("batch=True", "10")
-    if params.hide_comm:
-        _common.later("hide_comm", "9")
-    update = _diffusion_update(params)
+    one = _one_step(params)
+    return lambda T, Cp: (one(T, Cp), Cp)
 
-    def step(T, Cp):
-        return update_halo(update(T, Cp)), Cp
 
-    return step
+def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
+                            device="cpu") -> str | None:
+    """Why the pipelined group schedule cannot split this config, or None
+    (`models._fused.pipelined_support_error` over the diffusion kernel)."""
+    return _fused.pipelined_support_error(fused_stencil, shape, k, dtype, bx, by, gg,
+                                          stagger=0, device=device)
 
 
 def make_multi_step(
@@ -171,6 +186,7 @@ def make_multi_step(
     nsteps: int,
     *,
     fused_k: int | None = None,
+    fused_tile: tuple[int, int] | None = None,
     exchange_every: int = 1,
     pipelined: bool | None = None,
     batch: bool = False,
@@ -189,20 +205,34 @@ def make_multi_step(
     activity); on a grid with no halo activity the kernel runs alone.
     Requires ``nsteps % k == 0``.  A ``k``, dtype or block the kernel does
     not take raises `ValueError`: there is no plain-cadence fallback.
+    ``fused_tile=(bx, by)``: the kernel's x segment and y tile (``bz`` from
+    its ladder).
 
-    ``pipelined=True``, ``batch=True`` and ``autotune`` come with later
-    slices and raise `NotImplementedError`.
+    ``pipelined`` (default auto): run the fused groups on the boundary-first
+    pipelined schedule (`models._fused.run_pipelined_group_schedule`):
+    each launch splits into a ring pass that starts the slab exchange early
+    and a mid pass that runs meanwhile.  Bit-identical to the serialized
+    schedule (``pipelined=False``); auto turns it on where the tile split is
+    admissible (`pipelined_support_error`) and some x/y dimension exchanges
+    with a partner other than the block itself (on one GPU every partner is
+    the block itself, and auto stays serialized); ``pipelined=True`` forces
+    an admissible split, and on an inadmissible config warns once and runs
+    the serialized schedule.  It applies to the
+    fused groups; the plain ``exchange_every`` cadence exchanges serialized
+    either way, and the per-step path raises.
+
+    ``batch=True`` and ``autotune`` come with later slices and raise
+    `NotImplementedError`.
     """
     if batch:
         _common.later("batch=True", "10")
     if autotune:
         _common.later("autotune", "15")
-    if pipelined:
-        _common.later("pipelined=True", "9")
-    if params.hide_comm:
-        _common.later("hide_comm", "9")
     update = _diffusion_update(params)
     gg = global_grid()
+    bx, by = fused_tile if fused_tile is not None else (None, None)
+    if (bx is None) != (by is None):
+        raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")
 
     def slab_cadence(T, Cp, w):
         for _ in range(nsteps // w):
@@ -212,6 +242,12 @@ def make_multi_step(
         return T, Cp
 
     if fused_k:
+        if params.hide_comm:
+            raise ValueError(
+                "fused_k and hide_comm are mutually exclusive: the fused "
+                "kernel's slab exchange is already amortized over k steps; "
+                "overlap scheduling applies to the per-step XLA path."
+            )
         if nsteps % fused_k != 0:
             raise ValueError(f"nsteps={nsteps} must be a multiple of fused_k={fused_k}")
         if exchange_every not in (1, fused_k):
@@ -220,19 +256,20 @@ def make_multi_step(
                 f"exchange_every={exchange_every} conflicts."
             )
         require_deep_halo(fused_k, gg, what="fused_k")
-        active = any(dim_has_halo_activity(gg, d) for d in range(3))
-        cx = params.dt * params.lam / (params.dx * params.dx)
-        cy = params.dt * params.lam / (params.dy * params.dy)
-        cz = params.dt * params.lam / (params.dz * params.dz)
+        if pipelined and not any(dim_has_halo_activity(gg, d) for d in range(3)):
+            _fused.warn_pipelined_fallback(None, fused_k, "no halo activity: nothing to overlap")
+        c3 = tuple(params.dt * params.lam / (d * d) for d in (params.dx, params.dy, params.dz))
+        run_groups = _fused.fused_groups(
+            fused_stencil, "diffusion", [fused_k] * (nsteps // fused_k), k=fused_k,
+            width=fused_k, pipelined=pipelined, fused_tile=fused_tile, stagger=0, gg=gg,
+        )
 
         def fused_multi_step(T, Cp):
-            for _ in range(nsteps // fused_k):
-                T = fused_diffusion_steps(T, Cp, fused_k, cx, cy, cz)
-                # One slab exchange licenses the next k steps: the kernel's
-                # k-deep stale rind is exactly what the width-k exchange
-                # refreshes, from planes k steps still kept exact.
-                if active:
-                    T = update_halo(T, width=fused_k)
+            (T,) = run_groups(
+                lambda ki, c, tile, **subset: (
+                    fused_diffusion_steps(c[0], Cp, ki, *c3, tile=tile, **subset),),
+                (T,),
+            )
             return T, Cp
 
         return fused_multi_step
@@ -240,12 +277,31 @@ def make_multi_step(
     if exchange_every < 1:
         raise ValueError(f"exchange_every must be >= 1 (got {exchange_every})")
     if exchange_every > 1:
+        if params.hide_comm:
+            raise ValueError(
+                "exchange_every and hide_comm are mutually exclusive: overlap "
+                "scheduling hides the per-step exchange; a slab cadence "
+                "replaces it."
+            )
         if nsteps % exchange_every != 0:
             raise ValueError(
                 f"nsteps={nsteps} must be a multiple of exchange_every={exchange_every}"
             )
         require_deep_halo(exchange_every, gg)
-    return lambda T, Cp: slab_cadence(T, Cp, exchange_every)
+        return lambda T, Cp: slab_cadence(T, Cp, exchange_every)
+    if pipelined:
+        raise ValueError(
+            "pipelined applies to the group cadences (fused_k or "
+            "exchange_every > 1); the per-step path has no group schedule."
+        )
+    one = _one_step(params)
+
+    def multi_step(T, Cp):
+        for _ in range(nsteps):
+            T = one(T, Cp)
+        return T, Cp
+
+    return multi_step
 
 
 def run(nt: int, nx: int = 128, ny: int = 128, nz: int = 128, *,

@@ -15,7 +15,10 @@ Darcy flow with Boussinesq buoyancy plus temperature advection-diffusion:
 
 State: ``(T, Pf, qDx, qDy, qDz)``.  ``make_multi_step(fused_k=w)`` runs the
 PT iterations between slab exchanges in the hand-written CUDA kernel
-(`ops.fused_pt`).
+(`ops.fused_pt`), on the pipelined group schedule where the grid exchanges
+in x or y with another block (`models._fused`).  ``hide_comm=True`` overlaps each PT
+iteration's ``Pf`` exchange with the interior pressure update
+(`ops.overlap.hide_communication`).
 
 Usage::
 
@@ -32,12 +35,14 @@ from typing import Any
 
 import torch
 
+from ..ops import fused_pt
 from ..ops.fused_pt import fused_pt_iterations
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
+from ..ops.overlap import hide_communication
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils.fields import block_from_numpy, coord_fields, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
-from . import _common
+from . import _common, _fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +108,6 @@ def setup(
     linear conductive T profile with a central Gaussian perturbation, zero
     pressure and fluxes.  Returns ``(state, params)``.  ``ic_scale`` scales
     the perturbation."""
-    if hide_comm:
-        _common.later("hide_comm", "9")
     if init_grid:
         init_global_grid(nx, ny, nz, **grid_kwargs)
     if dtype is None:
@@ -187,13 +190,19 @@ def _pt_iteration(params: Params):
     """One PT relaxation: flux update (+buoyancy) on interior faces,
     pressure update at all cells, halo exchange of ``Pf`` alone (the fluxes'
     interior faces are recomputed from post-exchange ``Pf`` each
-    iteration)."""
+    iteration).  With ``params.hide_comm`` the ``Pf`` exchange overlaps the
+    interior pressure update (`hide_communication`)."""
     flux_update = _flux_update(params)
     p_update = _pressure_update(params)
+    if params.hide_comm:
+        p_exchanged = hide_communication(p_update, radius=1)
+    else:
+        def p_exchanged(*s):
+            return update_halo(p_update(*s))
 
     def iteration(T, Pf, qDx, qDy, qDz):
         qDx, qDy, qDz = flux_update(T, Pf, qDx, qDy, qDz)
-        return update_halo(p_update(Pf, qDx, qDy, qDz)), qDx, qDy, qDz
+        return p_exchanged(Pf, qDx, qDy, qDz), qDx, qDy, qDz
 
     return iteration
 
@@ -254,9 +263,20 @@ def make_step(params: Params, *, batch: bool = False):
     `_build_block_step`)."""
     if batch:
         _common.later("batch=True", "10")
-    if params.hide_comm:
-        _common.later("hide_comm", "9")
     return _build_block_step(params)
+
+
+def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
+                            npt=None, device="cpu") -> str | None:
+    """Why the pipelined group schedule cannot split this config, or None
+    (`models._fused.pipelined_support_error` over the PT kernel;
+    ``stagger=1``: the flux fields' shape-aware overlap is one deeper than
+    the grid overlap).  ``npt``: when given, also require the PT schedule to
+    admit a kernel chunk at all."""
+    if npt is not None and not _pt_schedule(int(npt), k)[1]:
+        return f"npt={npt} leaves no even kernel chunk"
+    return _fused.pipelined_support_error(fused_pt, shape, k, dtype, bx, by, gg, stagger=1,
+                                          device=device)
 
 
 def _pt_schedule(npt: int, w: int, *, even: bool = True):
@@ -289,6 +309,7 @@ def make_multi_step(
     *,
     exchange_every: int = 1,
     fused_k: int | None = None,
+    fused_tile: tuple[int, int] | None = None,
     pipelined: bool | None = None,
     batch: bool = False,
     coalesce: bool | None = None,
@@ -311,18 +332,26 @@ def make_multi_step(
     On a grid with no halo activity the kernel runs alone.  A dtype or block
     the kernel does not take, or an ``npt`` that leaves no even chunk,
     raises `ValueError`: there is no plain-cadence fallback.
+    ``fused_tile=(bx, by)``: the kernel's x segment and y tile (``bz`` from
+    its ladder).
 
-    ``pipelined=True``, ``batch=True``, ``coalesce=True`` and ``autotune``
-    come with later slices and raise `NotImplementedError`.
+    ``pipelined`` (default auto): the kernel chunks' pipelined schedule, as
+    in `models.diffusion3d.make_multi_step` (`pipelined_support_error`);
+    the split is gated at ``k = w`` and its tile pinned for every chunk of
+    a ragged schedule.
+
+    ``batch=True``, ``coalesce=True`` and ``autotune`` come with later
+    slices and raise `NotImplementedError`.
     """
     if batch:
         _common.later("batch=True", "10")
     if autotune:
         _common.later("autotune", "15")
-    if pipelined:
-        _common.later("pipelined=True", "9")
     if coalesce:
         _common.later("coalesce=True", "2")
+    bx, by = fused_tile if fused_tile is not None else (None, None)
+    if (bx is None) != (by is None):
+        raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")
     t_update = _temperature_update(params)
     flux_update = _flux_update(params)
     p_update = _pressure_update(params)
@@ -333,10 +362,11 @@ def make_multi_step(
         qDx, qDy, qDz = flux_update(T, *s)
         return p_update(s[0], qDx, qDy, qDz), qDx, qDy, qDz
 
-    def cadence_block_step(w, lead, chunks, kernel=None, active=True):
+    def cadence_block_step(w, lead, chunks, run_chunks=None, active=True):
         """One time step: ``lead`` per-iteration-exchanged iterations, then
-        per chunk its iterations (``kernel``, or the plain ones) and a
-        width-``w`` exchange of the four PT fields, then the T update."""
+        the chunks (``run_chunks(T, s)``, or per chunk its plain iterations
+        and a width-``w`` exchange of the four PT fields), then the T
+        update."""
 
         def block_step(T, Pf, qDx, qDy, qDz):
             s = (Pf, qDx, qDy, qDz)
@@ -344,12 +374,11 @@ def make_multi_step(
                 s = pt_iterate(T, s)
                 if active:
                     s = update_halo(*s)
-            for ki in chunks:
-                if kernel is None:
-                    for _ in range(ki):
-                        s = pt_iterate(T, s)
-                else:
-                    s = kernel(T, *s, ki)
+            if run_chunks is not None:
+                s = run_chunks(T, s)
+            for ki in chunks if run_chunks is None else ():
+                for _ in range(ki):
+                    s = pt_iterate(T, s)
                 if active:
                     s = update_halo(*s, width=w)
             T = t_update(T, *s[1:])
@@ -378,16 +407,30 @@ def make_multi_step(
             raise ValueError(
                 f"npt={npt} leaves no even kernel chunk for fused_k={fused_k}"
             )
-        th = params.theta_q
-        idx, idy, idz = 1.0 / params.dx, 1.0 / params.dy, 1.0 / params.dz
-        ralam = params.Ra * params.lam_T
-        bp = params.beta_p
-
-        def kernel(T, Pf, qDx, qDy, qDz, ki):
-            return fused_pt_iterations(T, Pf, qDx, qDy, qDz, ki, th, idx, idy, idz, ralam, bp)
-
+        co = (params.theta_q, 1.0 / params.dx, 1.0 / params.dy, 1.0 / params.dz,
+              params.Ra * params.lam_T, params.beta_p)
+        w = fused_k
         active = any(dim_has_halo_activity(gg, d) for d in range(3))
-        block_step = cadence_block_step(fused_k, lead, chunks, kernel, active)
+        if pipelined and not active:
+            _fused.warn_pipelined_fallback(None, w, "no halo activity: nothing to overlap",
+                                           "porous")
+
+        # Gated at the worst case ki = w: every chunk exchanges at width w,
+        # and the gate's tile is pinned for every chunk (a shorter chunk
+        # keeps it legal: a smaller window).
+        run_groups = _fused.fused_groups(
+            fused_pt, "porous", chunks, k=w, width=w, pipelined=pipelined,
+            fused_tile=fused_tile, stagger=1, gg=gg,
+        )
+
+        def run_chunks(T, s):
+            return run_groups(
+                lambda ki, c, tile, **subset: fused_pt_iterations(T, *c, ki, *co, tile=tile,
+                                                                  **subset),
+                s,
+            )
+
+        block_step = cadence_block_step(w, lead, chunks, run_chunks, active)
     elif exchange_every < 1:
         raise ValueError(f"exchange_every must be >= 1 (got {exchange_every})")
     elif exchange_every > 1:
@@ -402,6 +445,12 @@ def make_multi_step(
             exchange_every, *_pt_schedule(npt, exchange_every, even=False)
         )
     else:
+        if pipelined:
+            raise ValueError(
+                "pipelined applies to the group cadences (fused_k or "
+                "exchange_every > 1); the per-iteration path has no group "
+                "schedule."
+            )
         block_step = make_step(params)
 
     if nsteps > 64:

@@ -20,6 +20,9 @@ Mosaic needs aligned DMA extents; the helpers stay here for API parity, and
 the padding never enters the CUDA kernel.  The kernel is built with
 ``--fmad=false`` and does the plain version's operations in its order, so on
 the card the two agree bit for bit.
+
+Both versions take a launch tile and a subset launch (``tile``,
+``tile_sel``, ``carry_in``; see `ops.fused_stencil` and `ops.overlap`).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import ctypes
 import torch
 
 from . import _kernels
+from . import overlap as _overlap
 from .fused_stencil import (  # one envelope for every kernel
     _DTYPES,
     _SMEM_PER_BLOCK,
@@ -103,16 +107,40 @@ def window_bytes(shape, k: int, tile, itemsize: int) -> int:
     return 4 * ring_depth(k) * (ey + 1) * (ez + 1) * itemsize
 
 
-def tile_for(shape, k: int, itemsize: int) -> tuple[int, int, int]:
+def tile_fits(shape, k: int, tile, itemsize: int) -> bool:
+    """Whether a block's plane rings fit its shared memory and its window
+    plane the threads' slots at this tile."""
+    ey, ez = window_plane(shape, k, tile)
+    return (window_bytes(shape, k, tile, itemsize) <= _SMEM_PER_BLOCK
+            and (ey + 1) * (ez + 1) <= SLOTS[itemsize] * THREADS)
+
+
+def tile_for(shape, k: int, itemsize: int, by: int | None = None) -> tuple[int, int, int]:
     """The kernel's tile ``(bx, by, bz)`` for this block shape, ``k`` and
-    item size: ``bx`` is all of x (one segment)."""
-    for by, bz in _TILES:
-        tile = (shape[0], by, bz)
-        ey, ez = window_plane(shape, k, tile)
-        if (window_bytes(shape, k, tile, itemsize) <= _SMEM_PER_BLOCK
-                and (ey + 1) * (ez + 1) <= SLOTS[itemsize] * THREADS):
+    item size: ``bx`` is all of x (one segment); ``by`` given: the first
+    ladder ``bz`` that fits beside it."""
+    for tby, bz in _TILES:
+        tile = (shape[0], by or tby, bz)
+        if tile_fits(shape, k, tile, itemsize):
             return tile
-    raise ValueError(f"no kernel tile fits shared memory for k={k}, itemsize={itemsize}")
+    raise ValueError(f"no kernel tile fits shared memory for k={k}, itemsize={itemsize}"
+                     + (f", by={by}" if by else ""))
+
+
+def default_tile(shape, k: int, itemsize: int, device=None) -> tuple[int, int, int]:
+    """The tile a launch takes when none is given (`tile_for` on every
+    device)."""
+    return tile_for(shape, k, itemsize)
+
+
+def check_tile(shape, k: int, tile, itemsize: int) -> tuple[int, int, int]:
+    """An explicit launch tile ``(bx, by, bz)``, validated."""
+    tile = tuple(int(b) for b in tile)
+    if len(tile) != 3 or min(tile) < 1:
+        raise ValueError(f"tile must be three positive extents (bx, by, bz), got {tile}")
+    if not tile_fits(shape, k, tile, itemsize):
+        raise ValueError(f"tile {tile} does not fit the kernel at k={k}, itemsize={itemsize}")
+    return tile
 
 
 def grid(shape, tile) -> tuple[int, int, int]:
@@ -127,10 +155,12 @@ def resident_blocks(source: str, shape, k: int, itemsize: int) -> int:
     return _kernels.resident_blocks(source, itemsize, shape[1], shape[2], k, by, bz)
 
 
-def validate(cells, faces, k: int, what: str) -> None:
+def validate(cells, faces, k: int, what: str, *, tile=None, tile_sel: str = "all",
+             carry_in=None):
     """Check the cell fields (one shape) and the x/y/z face fields of a
-    staggered kernel call; raise `ValueError` on what the kernel does not
-    take."""
+    staggered kernel call and its launch request; raise `ValueError` on
+    what the kernel does not take.  Returns ``(tile, carry)``: the launch
+    tile (None: the default one) and ``carry_in`` as a tuple (or None)."""
     fields = (*cells, *faces)
     if len({a.dtype for a in fields}) != 1:
         raise ValueError(f"{what}: the fields must share a dtype (got {[a.dtype for a in fields]})")
@@ -151,21 +181,59 @@ def validate(cells, faces, k: int, what: str) -> None:
             f"{what}: the face fields must have shapes {face_shapes(shape)} for cells "
             f"{shape} (got {[tuple(a.shape) for a in faces]})"
         )
+    itemsize = cells[0].element_size()
+    if tile is not None:
+        tile = check_tile(shape, k, tile, itemsize)
+    carry = None
+    if tile_sel != "all":
+        tile = tile or tile_for(shape, k, itemsize)
+        carry = _overlap.check_tile_subset(tile_sel, carry_in, shape[:2], tile,
+                                           (cells[0], *faces))
     device = cells[0].device
     if device.type == "cpu":
-        return
+        return tile, carry
     if device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not {device}")
     if not all(a.is_contiguous() for a in fields):
         raise ValueError(f"{what} needs contiguous fields")
-    _, gy, gz = grid(shape, tile_for(shape, k, cells[0].element_size()))
-    if gy > 65535 or gz > 65535:
+    gz, gy, gx = grid(shape, tile or tile_for(shape, k, itemsize))
+    if tile_sel != "all":
+        gy, gx = _overlap.tile_subset_count(tile_sel, gx, gy), 1
+    if gy > 65535 or gx > 65535:
         raise ValueError(f"block {shape} exceeds the kernel's launch grid")
+    return tile, carry
+
+
+def launch(source: str, inputs, like, k: int, coeffs, tile, tile_sel: str, carry):
+    """Launch ``csrc/<source>.cu``'s kernel (a staggered wrapper's CUDA
+    half): ``inputs`` in its argument order, outputs shaped like ``like``
+    (or ``carry``, a ``mid*`` launch's ring outputs), the launch tile
+    (default `tile_for`) and the subset selector.  Returns the outputs."""
+    shape = tuple(like[0].shape)
+    tile = tile or tile_for(shape, k, like[0].element_size())
+    sel = _overlap.TILE_SELS.index(tile_sel)
+    suffix, cfloat = _DTYPES[like[0].dtype]
+    fn = _kernels.entry(
+        source, f"igg_{source}{'_subset' if sel else ''}_{suffix}",
+        [ctypes.c_void_p] * (len(inputs) + len(like)) + [ctypes.c_int] * 4
+        + [cfloat] * len(coeffs) + [ctypes.c_int] * (4 if sel else 3) + [ctypes.c_void_p],
+    )
+    outs = carry if carry is not None else tuple(torch.empty_like(a) for a in like)
+    with torch.cuda.device(like[0].device):
+        stream = torch.cuda.current_stream(like[0].device).cuda_stream
+        code = fn(*(a.data_ptr() for a in (*inputs, *outs)), *shape, k, *coeffs, *tile,
+                  *((sel,) if sel else ()), stream)
+    _kernels.check(source, code, f"{source} launch")
+    return outs
 
 
 def fused_leapfrog_steps_reference(P, Vx, Vy, Vz, k: int, cax: float, cay: float,
-                                   caz: float, b: float, idx: float, idy: float, idz: float):
-    """``k`` leapfrog steps with the kernel's constant folding (plain PyTorch)."""
+                                   caz: float, b: float, idx: float, idy: float, idz: float,
+                                   *, tile=None, tile_sel: str = "all", carry_in=None):
+    """``k`` leapfrog steps with the kernel's constant folding (plain
+    PyTorch); a subset launch copies the subset's owned region of the full
+    result into ``carry_in`` (or fresh tensors)."""
+    shape = tuple(P.shape)
     for _ in range(k):
         Vx, Vy, Vz = Vx.clone(), Vy.clone(), Vz.clone()
         Vx[1:-1, 1:-1, 1:-1] -= cax * (P[1:, 1:-1, 1:-1] - P[:-1, 1:-1, 1:-1])
@@ -175,35 +243,38 @@ def fused_leapfrog_steps_reference(P, Vx, Vy, Vz, k: int, cax: float, cay: float
             (Vx[1:] - Vx[:-1]) * idx + (Vy[:, 1:] - Vy[:, :-1]) * idy
         ) + (Vz[:, :, 1:] - Vz[:, :, :-1]) * idz
         P = P - b * div
-    return P, Vx, Vy, Vz
+    return subset_of((P, Vx, Vy, Vz), k, tile, tile_sel, carry_in, shape)
+
+
+def subset_of(full, k: int, tile, tile_sel: str, carry_in, shape):
+    """A plain staggered version's result for its launch request: ``full``
+    itself for ``"all"``, else the subset's owned region of it."""
+    if tile_sel == "all":
+        return full
+    tile = tile or tile_for(shape, k, full[0].element_size())
+    return _overlap.copy_subset(full, tile_sel, carry_in, shape[:2], tile)
 
 
 def fused_leapfrog_steps(P, Vx, Vy, Vz, k: int, cax: float, cay: float, caz: float,
-                         b: float, idx: float, idy: float, idz: float):
+                         b: float, idx: float, idy: float, idz: float, *, tile=None,
+                         tile_sel: str = "all", carry_in=None):
     """Advance ``k`` (even, 2..8) leapfrog steps in one pass; returns new
     ``(P, Vx, Vy, Vz)``.
 
     ``cax = dt/(rho*dx)`` (likewise ``cay``, ``caz``), ``b = dt*K``, ``idx =
     1/dx`` (likewise ``idy``, ``idz``).  CUDA tensors go through the kernel
     (contiguous, float32 or float64, every extent >= 3); CPU tensors through
-    `fused_leapfrog_steps_reference`.
+    `fused_leapfrog_steps_reference`.  ``tile``, ``tile_sel`` and
+    ``carry_in`` as in `ops.fused_stencil.fused_diffusion_steps`.
     """
     global launches
-    validate((P,), (Vx, Vy, Vz), k, "fused_leapfrog_steps")
+    tile, carry = validate((P,), (Vx, Vy, Vz), k, "fused_leapfrog_steps", tile=tile,
+                           tile_sel=tile_sel, carry_in=carry_in)
     coeffs = (cax, cay, caz, b, idx, idy, idz)
     if P.device.type == "cpu":
-        return fused_leapfrog_steps_reference(P, Vx, Vy, Vz, k, *coeffs)
-    suffix, cfloat = _DTYPES[P.dtype]
-    fn = _kernels.entry(
-        "fused_leapfrog", f"igg_fused_leapfrog_{suffix}",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [cfloat] * 7 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p],
-    )
-    outs = tuple(torch.empty_like(a) for a in (P, Vx, Vy, Vz))
-    with torch.cuda.device(P.device):
-        stream = torch.cuda.current_stream(P.device).cuda_stream
-        code = fn(*(a.data_ptr() for a in (P, Vx, Vy, Vz, *outs)), *P.shape, k, *coeffs,
-                  *tile_for(P.shape, k, P.element_size()), stream)
-    _kernels.check("fused_leapfrog", code, "fused_leapfrog_steps launch")
+        return fused_leapfrog_steps_reference(P, Vx, Vy, Vz, k, *coeffs, tile=tile,
+                                              tile_sel=tile_sel, carry_in=carry)
+    outs = launch("fused_leapfrog", (P, Vx, Vy, Vz), (P, Vx, Vy, Vz), k, coeffs, tile,
+                  tile_sel, carry)
     launches += 1
     return outs

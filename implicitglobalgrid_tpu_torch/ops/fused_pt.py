@@ -15,22 +15,21 @@ tiles; one more read-only cell input ``T``, and the PT flux formula):
   bp*div(q)`` at every cell — deliberately not the model's ``/dx`` form.
 
 The kernel is built with ``--fmad=false`` and does the plain version's
-operations in its order, so on the card the two agree bit for bit.
+operations in its order, so on the card the two agree bit for bit.  Both
+versions take a launch tile and a subset launch (``tile``, ``tile_sel``,
+``carry_in``; see `ops.fused_stencil` and `ops.overlap`).
 """
 
 from __future__ import annotations
 
-import ctypes
-
-import torch
-
-from . import _kernels
 from .fused_leapfrog import (  # noqa: F401  (re-export: one envelope and layout)
-    _DTYPES,
+    default_tile,
     face_shapes,
     fused_support_error,
+    launch,
     pad_faces,
     padded_face_shapes,
+    subset_of,
     tile_for,
     unpad_faces,
     validate,
@@ -42,8 +41,12 @@ launches = 0
 
 
 def fused_pt_iterations_reference(T, Pf, qDx, qDy, qDz, k: int, th: float, idx: float,
-                                  idy: float, idz: float, ralam: float, bp: float):
-    """``k`` PT iterations with the kernel's constant folding (plain PyTorch)."""
+                                  idy: float, idz: float, ralam: float, bp: float, *,
+                                  tile=None, tile_sel: str = "all", carry_in=None):
+    """``k`` PT iterations with the kernel's constant folding (plain
+    PyTorch); a subset launch copies the subset's owned region of the full
+    result into ``carry_in`` (or fresh tensors)."""
+    shape = tuple(Pf.shape)
     buoyancy = ralam * (0.5 * (T[1:-1, 1:-1, 1:] + T[1:-1, 1:-1, :-1]))
     for _ in range(k):
         fx = -idx * (Pf[1:, 1:-1, 1:-1] - Pf[:-1, 1:-1, 1:-1])
@@ -57,11 +60,12 @@ def fused_pt_iterations_reference(T, Pf, qDx, qDy, qDz, k: int, th: float, idx: 
             (qDx[1:] - qDx[:-1]) * idx + (qDy[:, 1:] - qDy[:, :-1]) * idy
         ) + (qDz[:, :, 1:] - qDz[:, :, :-1]) * idz
         Pf = Pf - bp * div
-    return Pf, qDx, qDy, qDz
+    return subset_of((Pf, qDx, qDy, qDz), k, tile, tile_sel, carry_in, shape)
 
 
 def fused_pt_iterations(T, Pf, qDx, qDy, qDz, k: int, th: float, idx: float, idy: float,
-                        idz: float, ralam: float, bp: float):
+                        idz: float, ralam: float, bp: float, *, tile=None,
+                        tile_sel: str = "all", carry_in=None):
     """Advance ``k`` (even, 2..8) PT iterations in one pass; returns new
     ``(Pf, qDx, qDy, qDz)`` (``T`` is read-only).
 
@@ -69,23 +73,17 @@ def fused_pt_iterations(T, Pf, qDx, qDy, qDz, k: int, th: float, idx: float, idy
     ``ralam = Ra*lam_T`` (buoyancy), ``bp`` = pressure relaxation.  CUDA
     tensors go through the kernel (contiguous, float32 or float64, every
     extent >= 3); CPU tensors through `fused_pt_iterations_reference`.
+    ``tile``, ``tile_sel`` and ``carry_in`` as in
+    `ops.fused_stencil.fused_diffusion_steps`.
     """
     global launches
-    validate((Pf, T), (qDx, qDy, qDz), k, "fused_pt_iterations")
+    tile, carry = validate((Pf, T), (qDx, qDy, qDz), k, "fused_pt_iterations", tile=tile,
+                           tile_sel=tile_sel, carry_in=carry_in)
     coeffs = (th, idx, idy, idz, ralam, bp)
     if Pf.device.type == "cpu":
-        return fused_pt_iterations_reference(T, Pf, qDx, qDy, qDz, k, *coeffs)
-    suffix, cfloat = _DTYPES[Pf.dtype]
-    fn = _kernels.entry(
-        "fused_pt", f"igg_fused_pt_{suffix}",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [cfloat] * 6 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p],
-    )
-    outs = tuple(torch.empty_like(a) for a in (Pf, qDx, qDy, qDz))
-    with torch.cuda.device(Pf.device):
-        stream = torch.cuda.current_stream(Pf.device).cuda_stream
-        code = fn(*(a.data_ptr() for a in (T, Pf, qDx, qDy, qDz, *outs)), *Pf.shape, k,
-                  *coeffs, *tile_for(Pf.shape, k, Pf.element_size()), stream)
-    _kernels.check("fused_pt", code, "fused_pt_iterations launch")
+        return fused_pt_iterations_reference(T, Pf, qDx, qDy, qDz, k, *coeffs, tile=tile,
+                                             tile_sel=tile_sel, carry_in=carry)
+    outs = launch("fused_pt", (T, Pf, qDx, qDy, qDz), (Pf, qDx, qDy, qDz), k, coeffs, tile,
+                  tile_sel, carry)
     launches += 1
     return outs

@@ -13,6 +13,12 @@ one function live here:
   (1/Cp)`` — deliberately not the model's ``lap/dx^2`` and ``(dt*lam)/Cp``
   (same math, different rounding).  The outermost ring is frozen.
 
+Both take a subset launch (``tile_sel``, ``carry_in``; `ops.overlap`): the
+ring or mid pass of the pipelined group schedule runs the blocks of only
+the subset's (x segment, y tile) pairs, each still stepping its whole
+window and writing only what it owns, so ring and mid together equal one
+``"all"`` launch tile for tile.
+
 The kernel is built with ``--fmad=false`` and does the same operations in
 the same order, so on the card it equals the plain version bit for bit.
 """
@@ -24,6 +30,7 @@ import ctypes
 import torch
 
 from . import _kernels
+from . import overlap as _overlap
 
 #: Launches of the CUDA kernel in this process (the main path's evidence
 #: that it went through the kernel; CPU calls of the plain version do not
@@ -85,15 +92,23 @@ def window_bytes(shape, k: int, tile, itemsize: int) -> int:
     return ((2 * RING + 2 * (k - 1)) * ey * rz + 2 * (rz + e)) * itemsize
 
 
-def tile_for(shape, k: int, itemsize: int) -> tuple[int, int, int]:
+def tile_fits(shape, k: int, tile, itemsize: int) -> bool:
+    """Whether a block's buffers fit its shared memory and its window plane
+    the threads' slots at this tile."""
+    return (window_bytes(shape, k, tile, itemsize) <= _SMEM_PER_BLOCK
+            and plane_slots(shape, k, tile, itemsize) <= slots(itemsize, k) * THREADS)
+
+
+def tile_for(shape, k: int, itemsize: int, by: int | None = None) -> tuple[int, int, int]:
     """The kernel's tile ``(bx, by, bz)`` for this block shape, ``k`` and
-    item size, with ``bx`` all of x (a launch may cut x: `launch_tile`)."""
-    for by, bz in _TILES:
-        tile = (shape[0], by, bz)
-        if (window_bytes(shape, k, tile, itemsize) <= _SMEM_PER_BLOCK
-                and plane_slots(shape, k, tile, itemsize) <= slots(itemsize, k) * THREADS):
+    item size, with ``bx`` all of x (a launch may cut x: `launch_tile`);
+    ``by`` given: the first ladder ``bz`` that fits beside it."""
+    for tby, bz in _TILES:
+        tile = (shape[0], by or tby, bz)
+        if tile_fits(shape, k, tile, itemsize):
             return tile
-    raise ValueError(f"no kernel tile fits shared memory for k={k}, itemsize={itemsize}")
+    raise ValueError(f"no kernel tile fits shared memory for k={k}, itemsize={itemsize}"
+                     + (f", by={by}" if by else ""))
 
 
 def grid(shape, tile) -> tuple[int, int, int]:
@@ -137,6 +152,14 @@ def launch_tile(shape, k: int, itemsize: int, device) -> tuple[int, int, int]:
     return -(-shape[0] // segments(shape, k, itemsize, *_occupancy[key])), by, bz
 
 
+def default_tile(shape, k: int, itemsize: int, device) -> tuple[int, int, int]:
+    """The tile a launch takes when none is given: `launch_tile` on a CUDA
+    device, `tile_for` elsewhere (the plain version's subsets)."""
+    if torch.device(device).type == "cuda":
+        return launch_tile(shape, k, itemsize, device)
+    return tile_for(shape, k, itemsize)
+
+
 def fused_support_error(shape, k: int, dtype) -> str | None:
     """Why the kernel cannot run this config, or None if it can."""
     if k % 2 or not 2 <= k <= 8:
@@ -148,8 +171,12 @@ def fused_support_error(shape, k: int, dtype) -> str | None:
     return None
 
 
-def fused_diffusion_steps_reference(T, Cp, k: int, cx: float, cy: float, cz: float):
-    """``k`` diffusion steps with the kernel's constant folding (plain PyTorch)."""
+def fused_diffusion_steps_reference(T, Cp, k: int, cx: float, cy: float, cz: float, *,
+                                    tile=None, tile_sel: str = "all", carry_in=None):
+    """``k`` diffusion steps with the kernel's constant folding (plain
+    PyTorch); a subset launch copies the subset's owned region of the full
+    result into ``carry_in`` (or a fresh tensor)."""
+    T0 = T
     minv = (1 / Cp)[1:-1, 1:-1, 1:-1]
     for _ in range(k):
         c = T[1:-1, 1:-1, 1:-1]
@@ -160,16 +187,20 @@ def fused_diffusion_steps_reference(T, Cp, k: int, cx: float, cy: float, cz: flo
         )
         T = T.clone()
         T[1:-1, 1:-1, 1:-1] = c + lap * minv
-    return T
+    if tile_sel == "all":
+        return T
+    tile = tile or tile_for(T0.shape, k, T0.element_size())
+    return _overlap.copy_subset((T,), tile_sel, carry_in, T0.shape[:2], tile)[0]
 
 
-def _entry(dtype):
-    """The kernel's C entry for ``dtype``."""
+def _entry(dtype, subset: bool = False):
+    """The kernel's C entry for ``dtype`` (the subset launch's: one more int,
+    the selector code)."""
     suffix, cfloat = _DTYPES[dtype]
     return _kernels.entry(
-        "fused_diffusion", f"igg_fused_diffusion_{suffix}",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [cfloat] * 3 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p],
+        "fused_diffusion", f"igg_fused_diffusion{'_subset' if subset else ''}_{suffix}",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [cfloat] * 3
+        + [ctypes.c_int] * (4 if subset else 3) + [ctypes.c_void_p],
     )
 
 
@@ -185,31 +216,55 @@ def _validate(T, Cp, k):
         raise ValueError(err)
 
 
-def fused_diffusion_steps(T, Cp, k: int, cx: float, cy: float, cz: float):
+def check_tile(shape, k: int, tile, itemsize: int) -> tuple[int, int, int]:
+    """An explicit launch tile ``(bx, by, bz)``, validated."""
+    tile = tuple(int(b) for b in tile)
+    if len(tile) != 3 or min(tile) < 1:
+        raise ValueError(f"tile must be three positive extents (bx, by, bz), got {tile}")
+    if not tile_fits(shape, k, tile, itemsize):
+        raise ValueError(f"tile {tile} does not fit the kernel at k={k}, itemsize={itemsize}")
+    return tile
+
+
+def fused_diffusion_steps(T, Cp, k: int, cx: float, cy: float, cz: float, *, tile=None,
+                          tile_sel: str = "all", carry_in=None):
     """Advance ``k`` (even, 2..8) diffusion steps in one pass; returns a new T.
 
     ``cx = dt*lam/dx^2`` (likewise ``cy``, ``cz``).  CUDA tensors go through
     the kernel (contiguous, float32 or float64, every extent >= 3); CPU
-    tensors through `fused_diffusion_steps_reference`.
+    tensors through `fused_diffusion_steps_reference`.  ``tile``: the launch
+    tile ``(bx, by, bz)`` (default `default_tile`).  ``tile_sel``: a subset
+    of the (x segment, y tile) pairs (`ops.overlap.TILE_SELS`); a ``mid*``
+    launch writes into ``carry_in``, the matching ``ring*`` launch's output,
+    and returns it.
     """
     global launches
     _validate(T, Cp, k)
+    if tile is not None:
+        tile = check_tile(T.shape, k, tile, T.element_size())
+    carry = None
+    if tile_sel != "all":
+        tile = tile or default_tile(T.shape, k, T.element_size(), T.device)
+        carry = _overlap.check_tile_subset(tile_sel, carry_in, T.shape[:2], tile, (T,))
     if T.device.type == "cpu":
-        return fused_diffusion_steps_reference(T, Cp, k, cx, cy, cz)
+        return fused_diffusion_steps_reference(T, Cp, k, cx, cy, cz, tile=tile,
+                                               tile_sel=tile_sel, carry_in=carry)
     if T.device.type != "cuda":
         raise ValueError(f"fused_diffusion_steps runs on CUDA or CPU tensors, not {T.device}")
     if not (T.is_contiguous() and Cp.is_contiguous()):
         raise ValueError("fused_diffusion_steps needs contiguous T and Cp")
     n0, n1, n2 = T.shape
-    bx, by, bz = tile = launch_tile(T.shape, k, T.element_size(), T.device)
-    if grid(T.shape, tile)[1] > 65535:
+    bx, by, bz = tile = tile or launch_tile(T.shape, k, T.element_size(), T.device)
+    gz, gy, gx = grid(T.shape, tile)
+    sel = _overlap.TILE_SELS.index(tile_sel)
+    if (gy if sel == 0 else _overlap.tile_subset_count(tile_sel, gx, gy)) > 65535 or gx > 65535:
         raise ValueError(f"block {tuple(T.shape)} exceeds the kernel's launch grid")
-    fn = _entry(T.dtype)
-    out = torch.empty_like(T)
+    out = carry[0] if carry is not None else torch.empty_like(T)
     with torch.cuda.device(T.device):
         stream = torch.cuda.current_stream(T.device).cuda_stream
-        code = fn(T.data_ptr(), Cp.data_ptr(), out.data_ptr(), n0, n1, n2, k,
-                  cx, cy, cz, bx, by, bz, stream)
+        args = (T.data_ptr(), Cp.data_ptr(), out.data_ptr(), n0, n1, n2, k, cx, cy, cz,
+                bx, by, bz)
+        code = _entry(T.dtype, sel != 0)(*args, *((sel,) if sel else ()), stream)
     _kernels.check("fused_diffusion", code, "fused_diffusion_steps launch")
     launches += 1
     return out

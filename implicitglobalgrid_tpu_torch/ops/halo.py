@@ -21,6 +21,13 @@ Fields are updated IN PLACE (the reference's mutating API); `update_halo`
 also returns them, like the JAX package's functional call.  The transport is
 `torch.distributed.batch_isend_irecv` over contiguous send/receive slabs;
 received slabs are written back with ``copy_``.
+
+`begin_slab_exchange` / `finish_slab_exchange` split the same exchange in
+two for the overlap schedules (`ops.overlap.hide_communication`, the
+pipelined group schedule of `models._fused`): ``begin`` starts it on a
+high-priority communication stream (the reference's max-priority halo
+streams) from the planes a field already holds, ``finish`` makes the
+compute stream wait for it and writes the received planes.
 """
 
 from __future__ import annotations
@@ -131,14 +138,39 @@ def _partner_self(gg, d: int) -> bool:
     return (disp % nd == 0) if bool(gg.periods[d]) else (disp == 0)
 
 
-def _slab_parts(A, d: int, gg, width: int = 1):
-    """The slabs a ``d``-exchange of ``A`` involves, as views of ``A``.
+def _patch_slab(slab, d: int, start: int, width: int, received, shp):
+    """A copy of a dim-``d`` slab with its earlier-dim halo strips replaced
+    by the received values: the sequential-dimension corner carry-over at
+    slab granularity (JAX ``ops/halo.py::_patch_slab``).
+
+    ``slab`` was cut from the field at planes ``[start, start+width)`` along
+    ``d``; ``received`` maps each already-exchanged dim ``d2 < d`` to its
+    ``(lo, hi)`` receive slabs (full field extent along ``d``; None on a
+    side with no partner, whose planes keep their values); ``shp`` is the
+    field's shape.  The result equals the slab cut from the array that the
+    earlier dims' exchange already updated.
+    """
+    slab = slab.clone(memory_format=torch.contiguous_format)
+    for d2, (lo2, hi2) in received.items():
+        for recv, at in ((lo2, 0), (hi2, None)):
+            if recv is None:
+                continue
+            w2 = recv.shape[d2]
+            at = shp[d2] - w2 if at is None else at
+            slab.narrow(d2, at, w2).copy_(recv.narrow(d, start, width))
+    return slab
+
+
+def _slab_parts(A, d: int, gg, width: int = 1, received=None):
+    """The slabs a ``d``-exchange of ``A`` involves.
 
     Returns ``None`` when the dimension exchanges nothing for this field,
     ``("self", src_lo, src_hi)`` on the self-partner path (the values for
     planes ``[0, w)`` and ``[n-w, n)``), or ``("permute", send_lo,
     send_hi)``: the slab for my lower partner's top planes and the one for
-    my upper partner's bottom planes.
+    my upper partner's bottom planes.  Without ``received`` the slabs are
+    views of ``A``; with it (`begin_slab_exchange`), copies patched by
+    `_patch_slab`.
     """
     shp = tuple(A.shape)
     if d >= len(shp):
@@ -155,61 +187,154 @@ def _slab_parts(A, d: int, gg, width: int = 1):
             f"dimension {d}; this field has ol={o}. Re-init the grid with "
             f"overlap{'xyz'[d]}={2 * width} (deep halo) or use width=1."
         )
+
+    def slab(start):
+        s = A.narrow(d, start, width)
+        return _patch_slab(s, d, start, width, received, shp) if received is not None else s
+
     if _partner_self(gg, d):
-        return ("self", A.narrow(d, n - o, width), A.narrow(d, o - width, width))
-    return ("permute", A.narrow(d, o - width, width), A.narrow(d, n - o, width))
+        return ("self", slab(n - o), slab(o - width))
+    return ("permute", slab(o - width), slab(n - o))
 
 
-def _permute_slabs(A, d: int, gg, width: int, send_lo, send_hi) -> None:
-    """Exchange two slabs with the distance-``disp`` partners along ``d``
-    and write what arrives into ``A``'s halo planes (PROC_NULL sides keep
-    their old planes).
+def _issue_permute(d: int, gg, send_lo, send_hi):
+    """Start the exchange of two slabs with the distance-``disp`` partners
+    along ``d``; returns ``(requests, recv_lo, recv_hi)``: the receive
+    buffers for planes ``[0, w)`` and ``[n-w, n)`` (None on a side with no
+    partner, PROC_NULL, whose planes keep their values).
 
     Message order is fixed so that both NCCL (which matches point-to-point
     messages between a pair of ranks in issue order) and gloo (which matches
     by tag) pair them right when both partners are the same rank (``dims[d]
     == 2``, periodic): every rank issues its sends as (to-lower, to-upper)
     and its receives as (from-upper, from-lower); what I send to my lower
-    partner is what that partner receives from ITS upper partner.
+    partner is what that partner receives from ITS upper partner.  Under
+    NCCL, the requests' ``wait()`` makes the current stream wait.
     """
-    n = A.shape[d]
     lower, upper = int(gg.neighbors[0, d]), int(gg.neighbors[1, d])
     tag_to_lower, tag_to_upper = 2 * d, 2 * d + 1
-    ops, recvs = [], []
+    ops = []
+    recv_lo = recv_hi = None
     if lower != PROC_NULL:
         ops.append(dist.P2POp(dist.isend, send_lo.contiguous(), lower, tag=tag_to_lower))
     if upper != PROC_NULL:
         ops.append(dist.P2POp(dist.isend, send_hi.contiguous(), upper, tag=tag_to_upper))
     if upper != PROC_NULL:
-        buf = torch.empty_like(send_lo, memory_format=torch.contiguous_format)
-        ops.append(dist.P2POp(dist.irecv, buf, upper, tag=tag_to_lower))
-        recvs.append((n - width, buf))
+        recv_hi = torch.empty_like(send_lo, memory_format=torch.contiguous_format)
+        ops.append(dist.P2POp(dist.irecv, recv_hi, upper, tag=tag_to_lower))
     if lower != PROC_NULL:
-        buf = torch.empty_like(send_hi, memory_format=torch.contiguous_format)
-        ops.append(dist.P2POp(dist.irecv, buf, lower, tag=tag_to_upper))
-        recvs.append((0, buf))
-    if not ops:
-        return
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    for start, buf in recvs:
-        A.narrow(d, start, width).copy_(buf)
+        recv_lo = torch.empty_like(send_hi, memory_format=torch.contiguous_format)
+        ops.append(dist.P2POp(dist.irecv, recv_lo, lower, tag=tag_to_upper))
+    return (dist.batch_isend_irecv(ops) if ops else []), recv_lo, recv_hi
+
+
+def _write_planes(A, d: int, width: int, lo, hi) -> None:
+    """Write received ``lo``/``hi`` slabs into ``A``'s planes ``[0, w)`` and
+    ``[n-w, n)`` along ``d`` (a None side keeps its planes)."""
+    if hi is not None:
+        A.narrow(d, A.shape[d] - width, width).copy_(hi)
+    if lo is not None:
+        A.narrow(d, 0, width).copy_(lo)
 
 
 def _exchange_dim(A, d: int, gg, width: int = 1) -> None:
     p = _slab_parts(A, d, gg, width)
     if p is None:
         return
-    n = A.shape[d]
     if p[0] == "self":
         # Source and target slabs are disjoint (ol >= 2w), so both copies
         # read pre-exchange values.
-        _, src_lo, src_hi = p
-        A.narrow(d, 0, width).copy_(src_lo)
-        A.narrow(d, n - width, width).copy_(src_hi)
+        _write_planes(A, d, width, p[1], p[2])
         return
-    _, send_lo, send_hi = p
-    _permute_slabs(A, d, gg, width, send_lo, send_hi)
+    reqs, lo, hi = _issue_permute(d, gg, p[1], p[2])
+    for req in reqs:
+        req.wait()
+    _write_planes(A, d, width, lo, hi)
+
+
+def exchange_dims(A, dims, *, width: int = 1):
+    """Exchange one field along the given dimensions only, in place (the
+    pipelined schedule's z exchange after the x/y halves)."""
+    gg = _grid.global_grid()
+    for d in dims:
+        _exchange_dim(A, d, gg, width)
+    return A
+
+
+#: High-priority communication stream per CUDA device (`_comm_stream`).
+_comm_streams: dict = {}
+
+
+def _comm_stream(device):
+    if device not in _comm_streams:
+        _comm_streams[device] = torch.cuda.Stream(device, priority=-1)
+    return _comm_streams[device]
+
+
+def begin_slab_exchange(fields, dims, *, width: int):
+    """Start the slab exchange of ``fields`` along ``dims`` WITHOUT writing
+    the received planes back; returns one pend list per field for
+    `finish_slab_exchange`.
+
+    The early-exchange entry of the overlap schedules: it reads only the
+    send planes of each field (``[o-w, o)`` and ``[n-o, n-o+w)``), so other
+    planes may still be being written while it runs.  Sequential-dimension
+    corner semantics hold at slab granularity: each dim-``d`` send slab is
+    patched with the dims ``< d`` receive strips of THIS call
+    (`_patch_slab`), exactly the values a serialized per-dim exchange would
+    have cut.  On CUDA tensors the whole exchange runs on the device's
+    communication stream after it waited for the work enqueued so far on
+    the current stream, so every dim-``d`` receive is ordered before the
+    dim-``d+1`` patch on that stream, never on the host; the tensors stay
+    on the device.
+    """
+    gg = _grid.global_grid()
+    pends = [[] for _ in fields]
+    received = [{} for _ in fields]
+    cuda = fields[0].is_cuda
+    comm = None
+    if cuda:
+        comm = _comm_stream(fields[0].device)
+        comm.wait_stream(torch.cuda.current_stream(fields[0].device))
+        for A in fields:
+            A.record_stream(comm)
+    with torch.cuda.stream(comm):  # no-op for CPU tensors (comm is None)
+        for d in dims:
+            for i, A in enumerate(fields):
+                p = _slab_parts(A, d, gg, width, received=received[i])
+                if p is None:
+                    continue
+                if p[0] == "self":
+                    lo, hi = p[1], p[2]
+                else:
+                    reqs, lo, hi = _issue_permute(d, gg, p[1], p[2])
+                    for req in reqs:
+                        req.wait()
+                received[i][d] = (lo, hi)
+                pends[i].append((d, lo, hi))
+    return pends
+
+
+def finish_slab_exchange(fields, pends):
+    """Apply `begin_slab_exchange`'s received slabs to ``fields`` in place.
+
+    ``fields`` may be later tensors than the ones ``begin`` saw (the
+    pipelined schedule finishes on the combined ring+mid output) as long as
+    they hold the same owned values.  On CUDA the current stream first waits
+    for the communication stream.  Returns the fields.
+    """
+    if fields and fields[0].is_cuda:
+        main = torch.cuda.current_stream(fields[0].device)
+        main.wait_stream(_comm_stream(fields[0].device))
+        for pend in pends:
+            for _, lo, hi in pend:
+                for t in (lo, hi):
+                    if t is not None:
+                        t.record_stream(main)
+    for A, pend in zip(fields, pends):
+        for d, lo, hi in pend:
+            _write_planes(A, d, lo.shape[d] if lo is not None else hi.shape[d], lo, hi)
+    return tuple(fields)
 
 
 def update_halo(*fields, width: int = 1):

@@ -158,17 +158,22 @@ def test_two_process_solver_matches_jax_two_devices(step_kw, tmp_path):
 
 def test_later_slices_raise_not_implemented():
     state, params = tpc.setup(8, 8, 8, npt=2, dtype=torch.float64, quiet=True, device="cpu")
-    for kw in (dict(pipelined=True), dict(batch=True), dict(autotune=True),
-               dict(coalesce=True)):
+    for kw in (dict(batch=True), dict(autotune=True), dict(coalesce=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             tpc.make_multi_step(params, 2, **kw)
     with pytest.raises(NotImplementedError, match="later slice"):
         tpc.make_step(params, batch=True)
-    with pytest.raises(NotImplementedError, match="hide_comm"):
-        tpc.make_multi_step(tpc.Params(hide_comm=True), 1)
+    # Ported since (Queue A item 9): pipelined belongs to the group cadences,
+    # as in JAX, and hide_comm runs (tests/test_torch_overlap.py).
+    with pytest.raises(ValueError, match="per-iteration path has no group"):
+        tpc.make_multi_step(params, 2, pipelined=True)
+    hidden = tpc.Params(**{**params.__dict__, "hide_comm": True})
+    assert all(torch.isfinite(a).all() for a in tpc.make_multi_step(hidden, 1)(*state))
     tigg.finalize_global_grid()
-    with pytest.raises(NotImplementedError, match="hide_comm"):
-        tpc.setup(8, 8, 8, hide_comm=True, quiet=True, device="cpu")
+    state, params = tpc.setup(8, 8, 8, hide_comm=True, dtype=torch.float64, quiet=True,
+                              device="cpu")
+    assert params.hide_comm
+    tigg.finalize_global_grid()
     with pytest.raises(NotImplementedError, match="item 12"):
         tpc.run(1, 8, 8, 8, quiet=True, device="cpu", checkpoint_dir="unused")
     assert not tigg.grid_is_initialized()
