@@ -123,7 +123,7 @@ def run(torch, fl, fp, fs, build: Path, names: list[str]) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     shape = (256, 256, 256)
-    fsig = [ctypes.c_int] * 4
+    fsig = [ctypes.c_int] * 5  # members, n0, n1, n2, k
     checked = [n for n in names if n not in ("no-loads", "no-stepping")]
 
     def ms(fn, reps=20):
@@ -152,10 +152,11 @@ def run(torch, fl, fp, fs, build: Path, names: list[str]) -> None:
                 fn = getattr(ctypes.CDLL(str(build / name / f"{s}.so")), f"igg_{s}_f32")
                 fn.restype = ctypes.c_int
                 fn.argtypes = ([ctypes.c_void_p] * (len(ins) + 4) + fsig
-                               + [ctypes.c_float] * len(co) + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                               + [ctypes.c_float] * len(co) + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
                 def launch(fn=fn, co=co, ins=ins):
-                    code = fn(*(a.data_ptr() for a in (*ins, *outs)), *shape, k, *co, *tile, stream)
+                    code = fn(*(a.data_ptr() for a in (*ins, *outs)), 1, *shape, k, *co, *tile, 0,
+                              stream)
                     if code != 0:
                         fail(f"{name}/{s}: CUDA error {code}")
 
@@ -177,11 +178,12 @@ def run(torch, fl, fp, fs, build: Path, names: list[str]) -> None:
     for name in names + names[::-1]:
         fn = getattr(ctypes.CDLL(str(build / name / "fused_diffusion.so")), "igg_fused_diffusion_f32")
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + fsig + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 3 + fsig + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
 
         def launch(fn=fn):
-            code = fn(T.data_ptr(), Cp.data_ptr(), out.data_ptr(), *shape, k, *DIFF, *tile, stream)
+            code = fn(T.data_ptr(), Cp.data_ptr(), out.data_ptr(), 1, *shape, k, *DIFF, *tile, 0,
+                      stream)
             if code != 0:
                 fail(f"{name}/fused_diffusion: CUDA error {code}")
 

@@ -65,6 +65,23 @@ and then prints no result line):
    the default ``pipelined`` (auto), which on one card must resolve to the
    serialized schedule (one launch per group): every x/y partner is the
    block itself, so there is no transfer to hide.
+8. Ensembles (``models._batched``, ``batch=True``).  (a) Each kernel's
+   batched launch at 256^3 float32, B = 4, at its main path's k: one launch
+   for the 4 members against 4 single launches and against the batched
+   plain version, bit for bit; batched ring01 + mid01 at the split tile
+   against the batched ``"all"`` launch at that tile, bit for bit; the
+   batched launch's ms, 4 single launches' ms back to back, ms per member
+   and the bound (4 single bounds); and a ragged batch (B = 3, (37, 45,
+   70)) against singles and plain.  (b) The ensemble main paths, every
+   member against an unbatched run of it on the card, bit for bit, launch
+   counts set to 0 before each batched run and read after (one launch per
+   group, whatever B): diffusion 128^3 float32 periodic x/y/z overlap 8, 16
+   steps ``fused_k=4`` for B = 1, 2, 4, 8 (the JAX package's
+   ``bench_batch`` shape: ms per step, member-steps/s and members/s of a
+   100-step job, and the host's enqueue time per step); diffusion 256^3 B = 4 at the same cadence; acoustic 256^3
+   B = 4 at phase 5's config, one group of 6 steps; porous 256^3 npt=12 B
+   = 2 at phase 6's config, one step; and diffusion 256^3 B = 2 with
+   ``pipelined=True`` against the batched serialized run, bit for bit.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -523,6 +540,7 @@ def main() -> None:
     porous_run(10, {}, "256^3 f32 npt=10 non-periodic", main=False)
 
     phase7(torch, igg, modules, reset_counts, counts, card)
+    phase8(torch, igg, modules, reset_counts, counts, card, records)
 
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
@@ -682,6 +700,166 @@ def phase7(torch, igg, modules, reset_counts, counts, card) -> None:
           f"plain {p_ms!r} ms/step {card}")
     if not same:
         fail("diffusion hide_comm step differs from the plain step")
+    igg.finalize_global_grid()
+
+
+
+def phase8(torch, igg, modules, reset_counts, counts, card, records) -> None:
+    """Phase 8: ensembles, the batched launch and the batched cadences (see
+    the module docstring)."""
+    from implicitglobalgrid_tpu_torch.models import _batched, _fused, acoustic3d, diffusion3d
+    from implicitglobalgrid_tpu_torch.models import porous_convection3d
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    f32 = torch.float32
+    fs, fl, fp = (modules[m] for m in ("fused_diffusion_steps", "fused_leapfrog_steps",
+                                        "fused_pt_iterations"))
+    lf = (0.05, 0.04, 0.03, 0.07, 10.0, 6.6, 5.0)
+    pt = (0.5, 10.0, 6.6, 5.0, 1.0, 3e-4)
+    diff = (1 / 8.1, 0.5 / 8.1, 0.25 / 8.1)
+    # Per kernel: tile module, main-path k, kernel call, plain call (both
+    # return tuples), and the inputs of one member.
+    calls = {
+        "fused_diffusion_steps": (fs, 4, lambda ins, k, **kw: (fs.fused_diffusion_steps(
+            *ins, k, *diff, **kw),), lambda ins, k: (fs.fused_diffusion_steps_reference(
+                *ins, k, *diff),)),
+        "fused_leapfrog_steps": (fl, 6, lambda ins, k, **kw: fl.fused_leapfrog_steps(
+            *ins, k, *lf, **kw), lambda ins, k: fl.fused_leapfrog_steps_reference(*ins, k, *lf)),
+        "fused_pt_iterations": (fl, 6, lambda ins, k, **kw: fp.fused_pt_iterations(
+            *ins, k, *pt, **kw), lambda ins, k: fp.fused_pt_iterations_reference(*ins, k, *pt)),
+    }
+
+    def inputs(name, nb, sh):
+        cells = [torch.randn((nb, *sh), generator=gen, device=dev, dtype=f32) for _ in range(2)]
+        if name == "fused_diffusion_steps":
+            return (cells[0], 1 + cells[1].abs())
+        faces = [0.1 * torch.randn((nb, *s), generator=gen, device=dev, dtype=f32)
+                 for s in fl.face_shapes(sh)]
+        return (*cells[name == "fused_leapfrog_steps":], *faces)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # -- 8a: the batched launch ------------------------------------------------
+    n, nb = 256, 4
+    for name, (mod, k, call, plain) in calls.items():
+        for sh, b in (((37, 45, 70), 3), ((n, n, n), nb)):
+            ins = inputs(name, b, sh)
+            before = modules[name].launches
+            got = call(ins, k)
+            torch.cuda.synchronize()
+            if modules[name].launches != before + 1:
+                fail(f"{name}: a batched call of {b} members launched "
+                     f"{modules[name].launches - before} times, expected once")
+            singles = [call(tuple(a[m] for a in ins), k) for m in range(b)]
+            torch.cuda.synchronize()
+            vs_singles = all(same([g[m] for g in got], s) for m, s in enumerate(singles))
+            vs_plain = same(got, plain(ins, k))
+            print(f"phase 8a: {name} f32 k={k} B={b} {sh}: one batched launch vs {b} single "
+                  f"launches {'bit-exact' if vs_singles else 'DIFFERS'}, vs the batched plain "
+                  f"version {'bit-exact' if vs_plain else 'DIFFERS'}")
+            if not (vs_singles and vs_plain):
+                fail(f"{name} B={b} {sh}: the batched launch differs (singles {vs_singles}, "
+                     f"plain {vs_plain})")
+            del singles
+            if sh[0] != n:
+                continue
+            _, by, bz = mod.tile_for(sh, k, 4)
+            tile = (-(-n // _fused.PIPELINED_X_SEGMENTS), by, bz)
+            want = call(ins, k, tile=tile)
+            ring = call(ins, k, tile=tile, tile_sel="ring01")
+            split = call(ins, k, tile=tile, tile_sel="mid01", carry_in=ring)
+            torch.cuda.synchronize()
+            ok = same(split, want)
+            print(f"phase 8a: {name} B={nb} 256^3 tile {tile}: batched ring01 + mid01 vs the "
+                  f"batched 'all' launch {'bit-exact' if ok else 'DIFFERS'}")
+            if not ok:
+                fail(f"{name}: batched ring01 + mid01 differs from the batched 'all' launch")
+            del want, ring, split
+            bound_ms, bound_by = bound(nbytes(*ins, *got),
+                                       k * nb * n**3 * FLOPS_PER_CELL_STEP[name])
+            members = [tuple(a[m].clone() for a in ins) for m in range(nb)]
+            batched_ms = cuda_ms(torch, lambda: call(ins, k), reps=10)
+            singles_ms = cuda_ms(torch, lambda: [call(mb, k) for mb in members], reps=10)
+            print(f"phase 8a: {name} 256^3 f32 k={k} B={nb}: batched launch {batched_ms!r} ms, "
+                  f"{nb} single launches {singles_ms!r} ms, {batched_ms / nb!r} ms per member, "
+                  f"bound {bound_ms!r} ms ({bound_by}) {card}")
+            records[name]["batched"] = {"members": nb, "ms": batched_ms, "singles_ms": singles_ms,
+                                        "ms_per_member": batched_ms / nb, "bound_ms": bound_ms,
+                                        "bound_by": bound_by}
+            del members
+        del ins, got
+
+    # -- 8b: the ensemble main paths ---------------------------------------------
+    def ensemble(label, model, kmod, nb, nxyz, setup_kw, nsteps, step_kw, want_launches,
+                 reps=3):
+        """One batched run against each member's unbatched run, bit for bit;
+        returns the batched run's ms per step (over ``reps`` runs)."""
+        state, params = _batched.batched_setup(model, *nxyz, batch=nb, dtype=f32, quiet=True,
+                                               **setup_kw)
+        batched = model.make_multi_step(params, nsteps, batch=True, **step_kw)
+        alone = model.make_multi_step(params, nsteps, **step_kw)
+        batched(*state)  # warm-up (allocator)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = batched(*state)
+        torch.cuda.synchronize()
+        c = counts()
+        for b in range(nb):
+            want = alone(*_batched.member_state(state, b))
+            if not all(torch.isfinite(g[b]).all() and torch.equal(g[b], w)
+                       for g, w in zip(got, want)):
+                fail(f"{label} B={nb}: member {b} differs from its unbatched run")
+        if c[kmod] != want_launches:
+            fail(f"{label} B={nb} launched {c}, expected {want_launches} {kmod}")
+        ms = cuda_ms(torch, lambda: batched(*state), reps=reps, warmup=1) / nsteps
+        # The host's enqueue of one run, from an idle device (no wait inside).
+        host = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched(*state)
+            host.append((time.perf_counter() - t0) * 1e3 / nsteps)
+        torch.cuda.synchronize()
+        host_ms = sorted(host)[len(host) // 2]
+        igg.finalize_global_grid()
+        print(f"phase 8b: {label} B={nb}: launches {c} ({want_launches} groups: one launch each); "
+              f"every member bit-exact with its unbatched run; {ms!r} ms per step back to back "
+              f"(CUDA events, {reps} runs), host enqueue {host_ms!r} ms per step (median) {card}")
+        return ms
+
+    ov = lambda o: dict(overlapx=o, overlapy=o, overlapz=o)  # noqa: E731
+    xyz = dict(periodx=1, periody=1, periodz=1)
+    for nb in (1, 2, 4, 8):
+        ms = ensemble("diffusion 128^3 f32 periodic x/y/z overlap 8, 16 steps fused_k=4",
+                      diffusion3d, "fused_diffusion_steps", nb, (128,) * 3, {**xyz, **ov(8)}, 16,
+                      dict(fused_k=4), 4, reps=20)
+        print(f"phase 8b: diffusion 128^3 B={nb}: {nb / ms * 1e3!r} member-steps/s, "
+              f"{nb / (ms * 1e-3 * 100)!r} members/s (100-step jobs) {card}")
+    ensemble("diffusion 256^3 f32 periodic x/y/z overlap 8, 16 steps fused_k=4", diffusion3d,
+             "fused_diffusion_steps", 4, (n,) * 3, {**xyz, **ov(8)}, 16, dict(fused_k=4), 4)
+    ensemble("acoustic 256^3 f32 periodic z overlap 12, 6 steps fused_k=6", acoustic3d,
+             "fused_leapfrog_steps", 4, (n,) * 3, dict(periodz=1, **ov(12)), 6,
+             dict(fused_k=6), 1)
+    ensemble("porous 256^3 f32 npt=12 periodic z overlap 14, 1 step fused_k=6",
+             porous_convection3d, "fused_pt_iterations", 2, (n,) * 3,
+             dict(npt=12, periodz=1, **ov(14)), 1, dict(fused_k=6), 2)
+
+    state, params = _batched.batched_setup(diffusion3d, n, n, n, batch=2, dtype=f32, quiet=True,
+                                           **xyz, **ov(8))
+    piped = diffusion3d.make_multi_step(params, 16, batch=True, fused_k=4, pipelined=True)
+    serial = diffusion3d.make_multi_step(params, 16, batch=True, fused_k=4, pipelined=False)
+    reset_counts()
+    got = piped(*state)
+    torch.cuda.synchronize()
+    c = counts()
+    ok = same(got, serial(*state))
+    print(f"phase 8b: diffusion 256^3 f32 B=2 periodic x/y/z, 16 steps fused_k=4 pipelined=True: "
+          f"launches {c} (ring + mid per group); vs the batched serialized run "
+          f"{'bit-exact' if ok else 'DIFFERS'}")
+    if not ok or c["fused_diffusion_steps"] != 2 * 4:
+        fail(f"batched pipelined diffusion: bit-exact {ok}, launches {c} (expected 8)")
     igg.finalize_global_grid()
 
 

@@ -17,10 +17,12 @@ The three-function promise::
 
 from .ops.gather import gather
 from .ops.halo import halosize, local_shape, ol, update_halo
+from .ops.overlap import hide_communication
 from .ops.stencil import stencil
 from .parallel import distributed
 from .parallel.grid import (
     GlobalGrid,
+    check_initialized,
     finalize_global_grid,
     get_global_grid,
     global_grid,
@@ -31,15 +33,17 @@ from .parallel.grid import (
     tic,
     toc,
 )
-from .parallel.topology import NDIMS, PROC_NULL
+from .parallel.topology import NDIMS, NNEIGHBORS_PER_DIM, PROC_NULL
 from .utils.fields import block_from_numpy, coord_fields, from_block_fn, full, ones, zeros
 from .utils.tools import nx_g, ny_g, nz_g, x_g, y_g, z_g
 
 __all__ = [
     "GlobalGrid",
     "NDIMS",
+    "NNEIGHBORS_PER_DIM",
     "PROC_NULL",
     "block_from_numpy",
+    "check_initialized",
     "coord_fields",
     "distributed",
     "finalize_global_grid",
@@ -50,6 +54,7 @@ __all__ = [
     "global_grid",
     "grid_is_initialized",
     "halosize",
+    "hide_communication",
     "init_global_grid",
     "local_shape",
     "nx_g",

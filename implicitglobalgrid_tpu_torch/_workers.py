@@ -20,6 +20,19 @@ Tasks:
   such ``step`` keyword sets (``fused_k``, ``fused_tile``, ``pipelined``,
   ...; ``hide_comm`` sets the params' flag), each run from the same inputs
   and saved as ``<name><i>``.
+* ``"batched"``: ensembles (`models._batched`).  Each entry of ``runs``
+  names a ``model`` (one of the kinds above), its ``params``, ``nsteps``,
+  ``batch`` B, a ``steps`` list and a ``prefix``; member ``b``'s inputs are
+  ``<prefix><name>@<b>``.  The worker stacks the members, runs
+  ``make_multi_step(..., batch=True, **step)`` once per step and each member
+  alone, and saves member ``b`` of the batched result as
+  ``<prefix><name><i>@<b>`` and the member's own run as
+  ``<prefix><name><i>@<b>u``, the ``P2POp``s the batched run issued per
+  grid dimension as ``<prefix>p2p<i>``, and for porous runs the batched
+  result's `make_batched_residual` as ``<prefix>res<i>``.  With
+  ``finite_probe`` (``{"rank": r, "member": m}``) it then poisons member
+  ``m`` of the first run's inputs on rank ``r`` alone and saves
+  `check_members_finite` as ``finite``.
 
 Run one rank by hand with ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json`` and the environment variables above set.
@@ -159,9 +172,68 @@ def _run(task: dict) -> dict:
                 got = model.make_multi_step(p, task["nsteps"], **step)(*state)
                 out.update({f"{n}{i}": a.numpy() for n, a in zip(names, got)})
             return out
+        if task["kind"] == "batched":
+            return _run_batched(task, inputs, models, dtypes)
         raise ValueError(f"unknown task kind {task['kind']!r}")
     finally:
         finalize_global_grid()
+
+
+def _run_batched(task: dict, inputs: dict, models: dict, dtypes: dict) -> dict:
+    """The ``"batched"`` task (see the module docstring)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from .models import _batched, porous_convection3d
+
+    p2p = [0, 0, 0]
+    issue = dist.batch_isend_irecv
+
+    def counted(ops):
+        for op in ops:
+            p2p[op.tag // 2] += 1  # `ops.halo._issue_permute` tags by dimension
+        return issue(ops)
+
+    dist.batch_isend_irecv = counted
+    out = {}
+    try:
+        for run in task["runs"]:
+            model, names = models[run["model"]]
+            kw = dict(run["params"])
+            kw["dtype"] = dtypes[kw["dtype"]]
+            params = model.Params(**kw)
+            pre, nb = run["prefix"], run["batch"]
+            members = [model.state_from_numpy(*(inputs[f"{pre}{n}@{b}"] for n in names))
+                       for b in range(nb)]
+            batched = _batched.stack_states(members)
+            for i, step in enumerate(run["steps"]):
+                step = dict(step)
+                p = dataclasses.replace(params, hide_comm=step.pop("hide_comm", False))
+                p2p[:] = [0, 0, 0]
+                got = model.make_multi_step(p, run["nsteps"], batch=True, **step)(*batched)
+                out[f"{pre}p2p{i}"] = np.array(p2p)
+                for b in range(nb):
+                    alone = model.make_multi_step(p, run["nsteps"], **step)(*members[b])
+                    for n, g, a in zip(names, got, alone):
+                        out[f"{pre}{n}{i}@{b}"] = g[b].numpy()
+                        out[f"{pre}{n}{i}@{b}u"] = a.numpy()
+                if model is porous_convection3d:
+                    out[f"{pre}res{i}"] = porous_convection3d.make_batched_residual(p)(
+                        *got).numpy()
+        probe = task.get("finite_probe")
+        if probe:
+            run = task["runs"][0]
+            model, names = models[run["model"]]
+            state = _batched.stack_states([
+                model.state_from_numpy(*(inputs[f"{run['prefix']}{n}@{b}"] for n in names))
+                for b in range(run["batch"])])
+            if int(os.environ["RANK"]) == probe["rank"]:
+                state[0][probe["member"], 0, 0, 0] = float("nan")
+            out["finite"] = _batched.check_members_finite(state)
+    finally:
+        dist.batch_isend_irecv = issue
+    return out
 
 
 def main(argv: list[str]) -> int:

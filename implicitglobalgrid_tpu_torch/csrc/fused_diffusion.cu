@@ -50,6 +50,10 @@
 // arithmetic and only passes its values on; level k's values at owned
 // positions go straight to device memory (the store needs no barrier).
 //
+// A batch of nb blocks (an ensemble's members, back to back in T, Cp and
+// the output) runs in one launch: the members extend the launch grid, and
+// member m's x plane p is plane m * n0 + p of the arrays (staggered.cuh).
+//
 // Simple first: no TMA (the envelope admits every n2 >= 3, so 16-byte row
 // strides are not guaranteed), no warp specialisation.
 
@@ -125,6 +129,8 @@ fused_diffusion_kernel(const T* __restrict__ tin, const T* __restrict__ cp,
   const Window w = Window::make<kSubset>(n0, n1, n2, K, bx, by, bz, sel);
   const int ex = w.x.e, ez = w.z.e, rz = row_stride(ez, E), ps = w.y.e * rz;
   const int64_t plane = (int64_t)n1 * n2;
+  // The window's first x plane in the member's arrays.
+  const int x0 = w.x.w0 + w.member * n0;
   // A guard of rz + E values before the first plane and after the last keeps
   // every neighbour read in the buffer: reads are unconditional, and off the
   // update range their values are not used.
@@ -163,7 +169,7 @@ fused_diffusion_kernel(const T* __restrict__ tin, const T* __restrict__ cp,
   // Window plane p of T and Cp into their rings (nothing past the window).
   auto load = [&](int p) {
     if (p >= ex) return;
-    const int64_t g = (int64_t)(w.x.w0 + p) * plane;
+    const int64_t g = (int64_t)(x0 + p) * plane;
     T* dt = ring_t + (p & (kRing - 1)) * ps;
     T* dc = ring_c + (p & (kRing - 1)) * ps;
 #pragma unroll
@@ -261,7 +267,7 @@ fused_diffusion_kernel(const T* __restrict__ tin, const T* __restrict__ cp,
     // cur is T^K at plane t-K: store the owned positions.
     const int b = t - K;
     if (in(b, lx, hx)) {
-      const int64_t g = (int64_t)(w.x.w0 + b) * plane;
+      const int64_t g = (int64_t)(x0 + b) * plane;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
 #pragma unroll
@@ -300,12 +306,12 @@ cudaError_t prepare(int n1, int n2, int by, int bz, int* smem) {
 }
 
 template <typename T, int K, bool kSubset>
-int launch_k(const void* tin, const void* cp, void* tout, int n0, int n1, int n2, T cx, T cy,
-             T cz, int bx, int by, int bz, int sel, void* stream) {
+int launch_k(const void* tin, const void* cp, void* tout, int nb, int n0, int n1, int n2, T cx,
+             T cy, T cz, int bx, int by, int bz, int sel, void* stream) {
   int smem = 0;
   cudaError_t err = prepare<T, K, kSubset>(n1, n2, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid = igg::launch_grid(n0, n1, n2, bx, by, bz, sel);
+  const dim3 grid = igg::launch_grid(nb, n0, n1, n2, bx, by, bz, sel);
   fused_diffusion_kernel<T, K, kSubset><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(tin), static_cast<const T*>(cp), static_cast<T*>(tout), n0, n1, n2,
       cx, cy, cz, bx, by, bz, sel);
@@ -314,23 +320,32 @@ int launch_k(const void* tin, const void* cp, void* tout, int n0, int n1, int n2
 
 // sel: the tile subset (igg::TileSel; kSubset iff it is not kAllTiles).
 template <typename T, bool kSubset>
-int launch(const void* tin, const void* cp, void* tout, int n0, int n1, int n2, int k, T cx,
-           T cy, T cz, int bx, int by, int bz, int sel, void* stream) {
+int launch(const void* tin, const void* cp, void* tout, int nb, int n0, int n1, int n2, int k,
+           T cx, T cy, T cz, int bx, int by, int bz, int sel, void* stream) {
   switch (k) {
     case 2:
-      return launch_k<T, 2, kSubset>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
+      return launch_k<T, 2, kSubset>(tin, cp, tout, nb, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
                                      stream);
     case 4:
-      return launch_k<T, 4, kSubset>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
+      return launch_k<T, 4, kSubset>(tin, cp, tout, nb, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
                                      stream);
     case 6:
-      return launch_k<T, 6, kSubset>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
+      return launch_k<T, 6, kSubset>(tin, cp, tout, nb, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
                                      stream);
     case 8:
-      return launch_k<T, 8, kSubset>(tin, cp, tout, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
+      return launch_k<T, 8, kSubset>(tin, cp, tout, nb, n0, n1, n2, cx, cy, cz, bx, by, bz, sel,
                                      stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// sel: every tile (igg::kAllTiles) or a ring or mid subset (igg::TileSel).
+template <typename T>
+int dispatch(const void* tin, const void* cp, void* tout, int nb, int n0, int n1, int n2, int k,
+             T cx, T cy, T cz, int bx, int by, int bz, int sel, void* stream) {
+  if (sel < igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  auto run = sel == igg::kAllTiles ? launch<T, false> : launch<T, true>;
+  return run(tin, cp, tout, nb, n0, n1, n2, k, cx, cy, cz, bx, by, bz, sel, stream);
 }
 
 template <typename T, int K>
@@ -357,35 +372,18 @@ int occupancy(int n1, int n2, int k, int by, int bz, int* blocks) {
 
 extern "C" {
 
-// Each entry returns the cudaError_t of the launch (0 = launched).
-int igg_fused_diffusion_f32(const void* tin, const void* cp, void* tout, int n0,
+// Each entry returns the cudaError_t of the launch (0 = launched).  nb: the
+// members (blocks of (n0, n1, n2), back to back in every array).
+int igg_fused_diffusion_f32(const void* tin, const void* cp, void* tout, int nb, int n0,
                             int n1, int n2, int k, float cx, float cy, float cz,
-                            int bx, int by, int bz, void* stream) {
-  return launch<float, false>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz,
-                              igg::kAllTiles, stream);
+                            int bx, int by, int bz, int sel, void* stream) {
+  return dispatch<float>(tin, cp, tout, nb, n0, n1, n2, k, cx, cy, cz, bx, by, bz, sel, stream);
 }
 
-int igg_fused_diffusion_f64(const void* tin, const void* cp, void* tout, int n0,
+int igg_fused_diffusion_f64(const void* tin, const void* cp, void* tout, int nb, int n0,
                             int n1, int n2, int k, double cx, double cy, double cz,
-                            int bx, int by, int bz, void* stream) {
-  return launch<double, false>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz,
-                               igg::kAllTiles, stream);
-}
-
-// The subset launches: sel is a ring or mid selector (igg::TileSel).
-int igg_fused_diffusion_subset_f32(const void* tin, const void* cp, void* tout, int n0,
-                                   int n1, int n2, int k, float cx, float cy, float cz,
-                                   int bx, int by, int bz, int sel, void* stream) {
-  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
-  return launch<float, true>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz, sel, stream);
-}
-
-int igg_fused_diffusion_subset_f64(const void* tin, const void* cp, void* tout, int n0,
-                                   int n1, int n2, int k, double cx, double cy, double cz,
-                                   int bx, int by, int bz, int sel, void* stream) {
-  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
-  return launch<double, true>(tin, cp, tout, n0, n1, n2, k, cx, cy, cz, bx, by, bz, sel,
-                              stream);
+                            int bx, int by, int bz, int sel, void* stream) {
+  return dispatch<double>(tin, cp, tout, nb, n0, n1, n2, k, cx, cy, cz, bx, by, bz, sel, stream);
 }
 
 // Resident blocks per SM of the kernel for this item size, k and tile, into

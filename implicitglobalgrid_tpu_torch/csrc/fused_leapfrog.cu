@@ -26,6 +26,9 @@
 // are (the TPU kernel's padded face layout exists only for Mosaic's DMA
 // alignment).
 //
+// A batch of nb blocks (an ensemble's members, back to back in each array)
+// runs in one launch: the members extend the grid (staggered.cuh).
+//
 // Simple first: no TMA (the n+1 face arrays' row strides are not multiples
 // of 16 bytes in general), no warp specialisation, no register queues.
 
@@ -71,13 +74,13 @@ cudaError_t prepare(int n1, int n2, int k, int by, int bz, int* smem) {
 // sel: the tile subset (igg::TileSel; kSubset iff it is not kAllTiles).
 template <typename Real, bool kSubset>
 int launch(const void* p, const void* vx, const void* vy, const void* vz, void* p_out,
-           void* vx_out, void* vy_out, void* vz_out, int n0, int n1, int n2, int k, Real cax,
-           Real cay, Real caz, Real b, Real idx, Real idy, Real idz, int bx, int by, int bz,
-           int sel, void* stream) {
+           void* vx_out, void* vy_out, void* vz_out, int nb, int n0, int n1, int n2, int k,
+           Real cax, Real cay, Real caz, Real b, Real idx, Real idy, Real idz, int bx, int by,
+           int bz, int sel, void* stream) {
   int smem = 0;
   cudaError_t err = prepare<Real, kSubset>(n1, n2, k, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid = igg::launch_grid(n0, n1, n2, bx, by, bz, sel);
+  const dim3 grid = igg::launch_grid(nb, n0, n1, n2, bx, by, bz, sel);
   fused_leapfrog_kernel<Real, kSubset><<<grid, igg::kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const Real*>(p), static_cast<const Real*>(vx), static_cast<const Real*>(vy),
       static_cast<const Real*>(vz), static_cast<Real*>(p_out), static_cast<Real*>(vx_out),
@@ -95,48 +98,40 @@ int occupancy(int n1, int n2, int k, int by, int bz, int* blocks) {
       blocks, fused_leapfrog_kernel<Real, false>, igg::kThreads, smem);
 }
 
+// sel: every tile (igg::kAllTiles) or a ring or mid subset (igg::TileSel).
+template <typename Real>
+int dispatch(const void* p, const void* vx, const void* vy, const void* vz, void* p_out,
+             void* vx_out, void* vy_out, void* vz_out, int nb, int n0, int n1, int n2, int k,
+             Real cax, Real cay, Real caz, Real b, Real idx, Real idy, Real idz, int bx, int by,
+             int bz, int sel, void* stream) {
+  if (sel < igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  auto run = sel == igg::kAllTiles ? launch<Real, false> : launch<Real, true>;
+  return run(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, nb, n0, n1, n2, k, cax, cay, caz, b,
+             idx, idy, idz, bx, by, bz, sel, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Each entry returns the cudaError_t of the launch (0 = launched).
+// Each entry returns the cudaError_t of the launch (0 = launched).  nb: the
+// members (blocks of (n0, n1, n2), back to back in every array).
 int igg_fused_leapfrog_f32(const void* p, const void* vx, const void* vy, const void* vz,
-                           void* p_out, void* vx_out, void* vy_out, void* vz_out, int n0,
+                           void* p_out, void* vx_out, void* vy_out, void* vz_out, int nb, int n0,
                            int n1, int n2, int k, float cax, float cay, float caz, float b,
-                           float idx, float idy, float idz, int bx, int by, int bz,
+                           float idx, float idy, float idz, int bx, int by, int bz, int sel,
                            void* stream) {
-  return launch<float, false>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax,
-                              cay, caz, b, idx, idy, idz, bx, by, bz, igg::kAllTiles, stream);
+  return dispatch<float>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, nb, n0, n1, n2, k, cax,
+                         cay, caz, b, idx, idy, idz, bx, by, bz, sel, stream);
 }
 
 int igg_fused_leapfrog_f64(const void* p, const void* vx, const void* vy, const void* vz,
-                           void* p_out, void* vx_out, void* vy_out, void* vz_out, int n0,
+                           void* p_out, void* vx_out, void* vy_out, void* vz_out, int nb, int n0,
                            int n1, int n2, int k, double cax, double cay, double caz, double b,
-                           double idx, double idy, double idz, int bx, int by, int bz,
+                           double idx, double idy, double idz, int bx, int by, int bz, int sel,
                            void* stream) {
-  return launch<double, false>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax,
-                               cay, caz, b, idx, idy, idz, bx, by, bz, igg::kAllTiles, stream);
-}
-
-// The subset launches: sel is a ring or mid selector (igg::TileSel).
-int igg_fused_leapfrog_subset_f32(const void* p, const void* vx, const void* vy, const void* vz,
-                                  void* p_out, void* vx_out, void* vy_out, void* vz_out, int n0,
-                                  int n1, int n2, int k, float cax, float cay, float caz,
-                                  float b, float idx, float idy, float idz, int bx, int by,
-                                  int bz, int sel, void* stream) {
-  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
-  return launch<float, true>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax,
-                             cay, caz, b, idx, idy, idz, bx, by, bz, sel, stream);
-}
-
-int igg_fused_leapfrog_subset_f64(const void* p, const void* vx, const void* vy, const void* vz,
-                                  void* p_out, void* vx_out, void* vy_out, void* vz_out, int n0,
-                                  int n1, int n2, int k, double cax, double cay, double caz,
-                                  double b, double idx, double idy, double idz, int bx, int by,
-                                  int bz, int sel, void* stream) {
-  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
-  return launch<double, true>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, n0, n1, n2, k, cax,
-                              cay, caz, b, idx, idy, idz, bx, by, bz, sel, stream);
+  return dispatch<double>(p, vx, vy, vz, p_out, vx_out, vy_out, vz_out, nb, n0, n1, n2, k, cax,
+                          cay, caz, b, idx, idy, idz, bx, by, bz, sel, stream);
 }
 
 // Resident blocks per SM of the kernel for this item size and tile, into

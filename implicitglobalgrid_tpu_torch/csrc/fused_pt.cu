@@ -26,6 +26,10 @@
 // while the level before it steps its cells, so that their latency (mostly
 // L2: the L1 left beside the ring cannot hold k planes of T) overlaps.
 //
+// A batch of nb blocks (an ensemble's members, back to back in each array,
+// T included) runs in one launch: the members extend the grid
+// (staggered.cuh).
+//
 // Simple first: no TMA, no warp specialisation, no register queues.
 
 #include "staggered.cuh"
@@ -81,13 +85,13 @@ cudaError_t prepare(int n1, int n2, int k, int by, int bz, int* smem) {
 // sel: the tile subset (igg::TileSel; kSubset iff it is not kAllTiles).
 template <typename Real, bool kSubset>
 int launch(const void* t, const void* p, const void* qx, const void* qy, const void* qz,
-           void* p_out, void* qx_out, void* qy_out, void* qz_out, int n0, int n1, int n2, int k,
-           Real th, Real idx, Real idy, Real idz, Real ralam, Real bp, int bx, int by, int bz,
-           int sel, void* stream) {
+           void* p_out, void* qx_out, void* qy_out, void* qz_out, int nb, int n0, int n1, int n2,
+           int k, Real th, Real idx, Real idy, Real idz, Real ralam, Real bp, int bx, int by,
+           int bz, int sel, void* stream) {
   int smem = 0;
   cudaError_t err = prepare<Real, kSubset>(n1, n2, k, by, bz, &smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid = igg::launch_grid(n0, n1, n2, bx, by, bz, sel);
+  const dim3 grid = igg::launch_grid(nb, n0, n1, n2, bx, by, bz, sel);
   fused_pt_kernel<Real, kSubset><<<grid, igg::kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const Real*>(p), static_cast<const Real*>(qx), static_cast<const Real*>(qy),
       static_cast<const Real*>(qz), static_cast<Real*>(p_out), static_cast<Real*>(qx_out),
@@ -105,47 +109,40 @@ int occupancy(int n1, int n2, int k, int by, int bz, int* blocks) {
                                                             igg::kThreads, smem);
 }
 
+// sel: every tile (igg::kAllTiles) or a ring or mid subset (igg::TileSel).
+template <typename Real>
+int dispatch(const void* t, const void* p, const void* qx, const void* qy, const void* qz,
+             void* p_out, void* qx_out, void* qy_out, void* qz_out, int nb, int n0, int n1,
+             int n2, int k, Real th, Real idx, Real idy, Real idz, Real ralam, Real bp, int bx,
+             int by, int bz, int sel, void* stream) {
+  if (sel < igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
+  auto run = sel == igg::kAllTiles ? launch<Real, false> : launch<Real, true>;
+  return run(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, nb, n0, n1, n2, k, th, idx, idy,
+             idz, ralam, bp, bx, by, bz, sel, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Each entry returns the cudaError_t of the launch (0 = launched).
+// Each entry returns the cudaError_t of the launch (0 = launched).  nb: the
+// members (blocks of (n0, n1, n2), back to back in every array).
 int igg_fused_pt_f32(const void* t, const void* p, const void* qx, const void* qy,
                      const void* qz, void* p_out, void* qx_out, void* qy_out, void* qz_out,
-                     int n0, int n1, int n2, int k, float th, float idx, float idy, float idz,
-                     float ralam, float bp, int bx, int by, int bz, void* stream) {
-  return launch<float, false>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k, th,
-                              idx, idy, idz, ralam, bp, bx, by, bz, igg::kAllTiles, stream);
+                     int nb, int n0, int n1, int n2, int k, float th, float idx, float idy,
+                     float idz, float ralam, float bp, int bx, int by, int bz, int sel,
+                     void* stream) {
+  return dispatch<float>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, nb, n0, n1, n2, k, th,
+                         idx, idy, idz, ralam, bp, bx, by, bz, sel, stream);
 }
 
 int igg_fused_pt_f64(const void* t, const void* p, const void* qx, const void* qy,
                      const void* qz, void* p_out, void* qx_out, void* qy_out, void* qz_out,
-                     int n0, int n1, int n2, int k, double th, double idx, double idy,
-                     double idz, double ralam, double bp, int bx, int by, int bz,
+                     int nb, int n0, int n1, int n2, int k, double th, double idx, double idy,
+                     double idz, double ralam, double bp, int bx, int by, int bz, int sel,
                      void* stream) {
-  return launch<double, false>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k,
-                               th, idx, idy, idz, ralam, bp, bx, by, bz, igg::kAllTiles, stream);
-}
-
-// The subset launches: sel is a ring or mid selector (igg::TileSel).
-int igg_fused_pt_subset_f32(const void* t, const void* p, const void* qx, const void* qy,
-                            const void* qz, void* p_out, void* qx_out, void* qy_out,
-                            void* qz_out, int n0, int n1, int n2, int k, float th, float idx,
-                            float idy, float idz, float ralam, float bp, int bx, int by, int bz,
-                            int sel, void* stream) {
-  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
-  return launch<float, true>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k, th,
-                             idx, idy, idz, ralam, bp, bx, by, bz, sel, stream);
-}
-
-int igg_fused_pt_subset_f64(const void* t, const void* p, const void* qx, const void* qy,
-                            const void* qz, void* p_out, void* qx_out, void* qy_out,
-                            void* qz_out, int n0, int n1, int n2, int k, double th, double idx,
-                            double idy, double idz, double ralam, double bp, int bx, int by,
-                            int bz, int sel, void* stream) {
-  if (sel <= igg::kAllTiles || sel >= igg::kNumSels) return (int)cudaErrorInvalidValue;
-  return launch<double, true>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, n0, n1, n2, k,
-                              th, idx, idy, idz, ralam, bp, bx, by, bz, sel, stream);
+  return dispatch<double>(t, p, qx, qy, qz, p_out, qx_out, qy_out, qz_out, nb, n0, n1, n2, k,
+                          th, idx, idy, idz, ralam, bp, bx, by, bz, sel, stream);
 }
 
 // Resident blocks per SM of the kernel for this item size and tile, into

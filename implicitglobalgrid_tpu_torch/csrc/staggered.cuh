@@ -1,6 +1,15 @@
 // The x-marching wavefront shared by the two staggered kernels
 // (fused_leapfrog.cu, fused_pt.cu).
 //
+// Batch.  A launch may advance B independent blocks of one shape (an
+// ensemble's members, each array holding its B members back to back): the
+// launch grid's z entries hold the members (launch_grid), and every CUDA
+// block steps one member's window (Window::member).  Member m's x plane p is
+// plane m * n0 + p of a cell-shaped array (m * (n0 + 1) + p of an x-face
+// array): the member only shifts the x plane a block loads and stores, so
+// member b's result is what a launch over b alone would give, bit for bit,
+// at the cost of one more int a thread.
+//
 // Geometry.  A block owns an output tile of cells [o0, o1) per axis and the
 // faces with the same indices along each face field's own axis; the block
 // whose tile reaches the array's top (o1 == n) also owns the top face n,
@@ -145,30 +154,41 @@ __device__ __forceinline__ int subset_tile(int sel, int i, int ncx, int ncy) {
   }
 }
 
-// The launch grid: (z tiles, y tiles, x segments), or for a subset launch
-// (z tiles, the subset's tiles, 1).
-inline dim3 launch_grid(int n0, int n1, int n2, int bx, int by, int bz, int sel) {
+// The launch grid of nb members: (z tiles, y tiles, nb * x segments), or for
+// a subset launch (z tiles, the subset's tiles, nb).  Empty (0 blocks along
+// y or z) when it exceeds the card's 65535 (the wrappers raise first).
+inline dim3 launch_grid(int nb, int n0, int n1, int n2, int bx, int by, int bz, int sel) {
   const int gz = (n2 + bz - 1) / bz, gy = (n1 + by - 1) / by, gx = (n0 + bx - 1) / bx;
-  return sel == kAllTiles ? dim3(gz, gy, gx) : dim3(gz, subset_count(sel, gx, gy), 1);
+  const int64_t ny = sel == kAllTiles ? gy : subset_count(sel, gx, gy);
+  const int64_t nz = sel == kAllTiles ? (int64_t)nb * gx : nb;
+  if (nb < 1 || ny > 65535 || nz > 65535) return dim3(gz, 0, 0);
+  return dim3(gz, (unsigned)ny, (unsigned)nz);
 }
 
 struct Window {
   Axis x, y, z;
+  int member;
 
-  // The block's window.  A full launch (kSubset false) reads its x segment
-  // and y tile from blockIdx.z and blockIdx.y; a subset launch maps
+  // The block's window and member.  A full launch (kSubset false) reads its
+  // member and x segment from blockIdx.z (member-major) and its y tile from
+  // blockIdx.y; a subset launch reads its member from blockIdx.z and maps
   // blockIdx.y through the subset's tiles.  Either way blockIdx.x is the z
   // tile.
   template <bool kSubset>
   __device__ static Window make(int n0, int n1, int n2, int k, int bx, int by, int bz, int sel) {
-    int ix = blockIdx.z, iy = blockIdx.y;
+    const int gx = (n0 + bx - 1) / bx;
+    int member = blockIdx.z, ix = 0, iy = blockIdx.y;
     if constexpr (kSubset) {
       const int ncy = (n1 + by - 1) / by;
-      const int t = subset_tile(sel, blockIdx.y, (n0 + bx - 1) / bx, ncy);
+      const int t = subset_tile(sel, blockIdx.y, gx, ncy);
       ix = t / ncy;
       iy = t - ix * ncy;
+    } else {
+      member = blockIdx.z / gx;
+      ix = blockIdx.z - member * gx;
     }
-    return {Axis::make(n0, ix, bx, k), Axis::make(n1, iy, by, k), Axis::make(n2, blockIdx.x, bz, k)};
+    return {Axis::make(n0, ix, bx, k), Axis::make(n1, iy, by, k), Axis::make(n2, blockIdx.x, bz, k),
+            member};
   }
 };
 
@@ -188,8 +208,9 @@ __device__ __forceinline__ bool upto(int flags, int field, int s) {
 // p: the cell value at the face's upper side, q: at its lower side):
 //   ld(g)             an element the z-face update needs from a cell-shaped
 //                     array in global memory (g: the cell above the face, and
-//                     g - 1), read for every slot one half step ahead, while
-//                     the P half of the level before runs;
+//                     g - 1, in the block's member), read for every slot one
+//                     half step ahead, while the P half of the level before
+//                     runs;
 //   vx(v, p, q), vy(v, p, q), vz(v, p, q, a, am)   the new x, y, z face
 //                     value (a, am: ld(g), ld(g - 1));
 //   p(P, vx, vx1, vy, vy1, vz, vz1)   the new cell value from its lower and
@@ -202,7 +223,8 @@ __device__ __forceinline__ bool upto(int flags, int field, int s) {
 // the P half of the same level: Vx^s and P^{s-1} of the planes b+1 and b,
 // and, for the iteration's second P plane, its Vx, Vy and Vz, which the
 // first V plane updated.
-// march() runs k levels over the block's window and stores its owned tile.
+// march() runs k levels over the block's window and stores its owned tile
+// (of member w.member).
 template <typename T, typename Ops>
 __device__ __forceinline__ void march(const Window& w, int k, T* __restrict__ smem,
                                       const T* __restrict__ c_in, const T* __restrict__ fx_in,
@@ -210,12 +232,15 @@ __device__ __forceinline__ void march(const Window& w, int k, T* __restrict__ sm
                                       T* __restrict__ c_out, T* __restrict__ fx_out,
                                       T* __restrict__ fy_out, T* __restrict__ fz_out,
                                       const Ops& ops) {
-  const int n1 = w.y.n, n2 = w.z.n, ex = w.x.e, ey = w.y.e, ez = w.z.e;
+  const int n0 = w.x.n, n1 = w.y.n, n2 = w.z.n, ex = w.x.e, ey = w.y.e, ez = w.z.e;
   const int rz = ez + 1, ps = (ey + 1) * rz, depth = ring_depth(k);
   const int slots = (ps + kThreads - 1) / kThreads;
   constexpr int kS = kSlots<T>;
   const int64_t cplane = (int64_t)n1 * n2, yplane = (int64_t)(n1 + 1) * n2,
                 zplane = (int64_t)n1 * (n2 + 1);
+  // The window's first x plane in the member's cell-shaped (and y- and
+  // z-face) arrays, x0, and in its x-face array, x0 + member.
+  const int x0 = w.x.w0 + w.member * n0;
   // Field f's ring slot i: fields 0 = cells, 1/2/3 = x/y/z faces.
   auto at = [&](int f, int i) { return smem + (f * depth + i) * ps; };
 
@@ -255,7 +280,7 @@ __device__ __forceinline__ void march(const Window& w, int k, T* __restrict__ sm
   // ex - 1).
   auto load = [&](int p, int i) {
     if (p > ex) return;
-    const int64_t gx = w.x.w0 + p;
+    const int64_t gx = x0 + p, gxf = gx + w.member;
     const bool cells = p < ex;
     T *dc = at(0, i), *dx = at(1, i), *dy = at(2, i), *dz = at(3, i);
 #pragma unroll
@@ -264,7 +289,7 @@ __device__ __forceinline__ void march(const Window& w, int k, T* __restrict__ sm
       const int c = sc[j], f = sf[j];
       const int64_t oc = soc[j];
       if (f & kLoadC) {
-        __pipeline_memcpy_async(dx + c, fx_in + gx * cplane + oc, sizeof(T));
+        __pipeline_memcpy_async(dx + c, fx_in + gxf * cplane + oc, sizeof(T));
         if (cells) __pipeline_memcpy_async(dc + c, c_in + gx * cplane + oc, sizeof(T));
       }
       if (cells && (f & kLoadY)) __pipeline_memcpy_async(dy + c, fy_in + gx * yplane + oc, sizeof(T));
@@ -278,7 +303,7 @@ __device__ __forceinline__ void march(const Window& w, int k, T* __restrict__ sm
   const int lx = w.x.o0 - w.x.w0, hx = w.x.o1 - w.x.w0;
   auto store = [&](int b, int i, int i1) {
     if (!in(b, lx, hx)) return;
-    const int64_t gx = w.x.w0 + b;
+    const int64_t gx = x0 + b, gxf = gx + w.member;
     const bool top_x = b == hx - 1 && w.x.o1 == w.x.n;
     const T *P = at(0, i), *Vx = at(1, i), *Vx1 = at(1, i1), *Vy = at(2, i), *Vz = at(3, i);
 #pragma unroll
@@ -288,8 +313,8 @@ __device__ __forceinline__ void march(const Window& w, int k, T* __restrict__ sm
       const int64_t oc = soc[j];
       if (f & kStoreC) {
         c_out[gx * cplane + oc] = P[c];
-        fx_out[gx * cplane + oc] = Vx[c];
-        if (top_x) fx_out[(gx + 1) * cplane + oc] = Vx1[c];
+        fx_out[gxf * cplane + oc] = Vx[c];
+        if (top_x) fx_out[(gxf + 1) * cplane + oc] = Vx1[c];
       }
       if (f & kStoreY) fy_out[gx * yplane + oc] = Vy[c];
       if (f & kStoreZ) fz_out[gx * zplane + oc + sgy[j]] = Vz[c];
@@ -313,7 +338,7 @@ __device__ __forceinline__ void march(const Window& w, int k, T* __restrict__ sm
     for (int m = 0; m < kPlanes; ++m) {
       const int a = t - s + 1 + m;
       if (s > k || !in(a, w.x.side_lo(s), w.x.side_hi(s))) continue;
-      const int64_t gplane = (int64_t)(w.x.w0 + a) * cplane;
+      const int64_t gplane = (int64_t)(x0 + a) * cplane;
 #pragma unroll
       for (int j = 0; j < kS; ++j) {
         if (j >= slots) break;

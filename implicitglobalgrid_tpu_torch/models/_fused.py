@@ -24,6 +24,11 @@ through its kernels' in-kernel z patch, which the Hopper kernels do not have
 splits x/y as JAX does and runs the z exchange of the combined output after
 the x/y exchange finished, exactly the serialized order; JAX's "z-active grid
 without the z-patch kernel" rejection does not apply.
+
+Both schedules run an ensemble (``batch=True``: `models._batched`) as they
+run one block: one launch per pass for all B members, one exchange per
+dimension carrying all B.  The plan (split or not, tile) is taken from the
+member's block and the grid, never from B.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..ops.halo import (
 )
 from ..ops.overlap import tile_split_error, tile_split_sel
 from ..parallel.grid import global_grid
+from . import _batched
 
 _warned: set = set()
 
@@ -74,7 +80,7 @@ def _mid_stream(device):
 
 
 def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: int,
-                                 z_exchange: bool = False):
+                                 z_exchange: bool = False, lead: int = 0):
     """Boundary-first pipelined sibling of `run_group_schedule`.
 
     ``carry`` is a tuple of fields; per group ``ki`` of ``chunks``:
@@ -95,7 +101,8 @@ def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: in
     together equal one ``"all"`` launch tile for tile, and the early
     exchange moves exactly the slabs the serialized exchange would (corner
     strips patched in), so every group is bit-identical to the serialized
-    schedule.  On CPU tensors the steps run in order.
+    schedule.  On CPU tensors the steps run in order.  ``lead``: the
+    fields' leading ensemble axes (1 for a batch).
     """
     def group(ki, c):
         split = c[0].is_cuda
@@ -113,15 +120,15 @@ def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: in
             with torch.cuda.stream(mid):
                 out = interior(ki, c, b_out)
             # The compute stream holds only the ring pass since the fork.
-            pend = begin_slab_exchange(b_out, (0, 1), width=width)
+            pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead)
             main.wait_stream(mid)
         else:
-            pend = begin_slab_exchange(b_out, (0, 1), width=width)
+            pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead)
             out = interior(ki, c, b_out)
         out = finish_slab_exchange(out, pend)
         if z_exchange:
             for A in out:
-                exchange_dims(A, (2,), width=width)
+                exchange_dims(A, (2,), width=width, lead=lead)
         return out
 
     return run_group_schedule(chunks, group, tuple(carry))
@@ -150,24 +157,27 @@ def group_plan(kernel_mod, model: str, shape, dtype, device, *, k: int, width: i
 
 
 def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipelined, fused_tile,
-                 stagger: int, gg):
+                 stagger: int, gg, batch: bool = False):
     """A fused cadence's group sequence, serialized or pipelined: the one
     dispatch of the three models.
 
     Returns ``run(kernel, carry) -> carry``.  ``carry``: a tuple of fields,
-    the first cell-shaped; ``kernel(ki, carry, tile, **subset) -> carry``
-    launches one group of ``ki`` steps (``subset``: ``tile_sel`` and
-    ``carry_in``); every group is followed by a width-``width`` exchange of
-    all fields.  The schedule and its tile (`group_plan`) are resolved once
-    per block shape, dtype and device, at the first call that brings them.
+    the first cell-shaped (batched ``(B, *block)`` with ``batch``);
+    ``kernel(ki, carry, tile, **subset) -> carry`` launches one group of
+    ``ki`` steps (``subset``: ``tile_sel`` and ``carry_in``); every group is
+    followed by a width-``width`` exchange of all fields.  The schedule and
+    its tile (`group_plan`) are resolved once per block shape, dtype and
+    device, at the first call that brings them.
     """
     active = any(dim_has_halo_activity(gg, d) for d in range(3))
     z_exchange = dim_has_halo_activity(gg, 2)
+    lead = int(batch)
+    exchange = _batched.update_halo if batch else update_halo
     plans: dict = {}
 
     def run(kernel, carry):
         c0 = carry[0]
-        key = (tuple(c0.shape), c0.dtype, c0.device)
+        key = (tuple(c0.shape[lead:]), c0.dtype, c0.device)
         if key not in plans:
             plans[key] = group_plan(kernel_mod, model, *key, k=k, width=width,
                                     pipelined=pipelined, fused_tile=fused_tile, stagger=stagger,
@@ -178,7 +188,7 @@ def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipeline
                 chunks,
                 lambda ki, c: kernel(ki, c, tile, tile_sel="ring" + sel),
                 lambda ki, c, b_out: kernel(ki, c, tile, tile_sel="mid" + sel, carry_in=b_out),
-                carry, width=width, z_exchange=z_exchange,
+                carry, width=width, z_exchange=z_exchange, lead=lead,
             )
 
         def group(ki, c):
@@ -187,7 +197,7 @@ def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipeline
             # stale rind is exactly what the width-k exchange refreshes, from
             # planes k steps still kept exact.
             if active:
-                update_halo(*c, width=width)
+                exchange(*c, width=width)
             return c
 
         return run_group_schedule(chunks, group, tuple(carry))

@@ -21,7 +21,9 @@ steps per memory pass in the hand-written CUDA kernel
 (`ops.fused_leapfrog`), on the pipelined group schedule where the grid
 exchanges in x or y with another block (`models._fused`).  ``hide_comm=True`` overlaps the
 per-step velocity exchange with the interior velocity update
-(`ops.overlap.hide_communication`).
+(`ops.overlap.hide_communication`).  ``batch=True`` advances an ensemble of
+B members (every field with a leading B axis; `models._batched`) on every
+cadence: one kernel launch and one exchange per dimension for all B.
 
 Usage::
 
@@ -41,11 +43,11 @@ import torch
 from ..ops import fused_leapfrog
 from ..ops.fused_leapfrog import fused_leapfrog_steps
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
-from ..ops.overlap import hide_communication
+from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils.fields import block_from_numpy, coord_fields, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
-from . import _common, _fused
+from . import _batched, _common, _fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,14 +133,15 @@ def setup(
 
 def _velocity_update(params: Params):
     """Per-block velocity update without exchange: interior face points only
-    (boundary faces frozen, the rigid-wall condition)."""
+    (boundary faces frozen, the rigid-wall condition).  Blocks or batches of
+    them."""
     a = params.dt / params.rho
 
     def update(P, Vx, Vy, Vz):
         Vx, Vy, Vz = Vx.clone(), Vy.clone(), Vz.clone()
-        Vx[1:-1, 1:-1, 1:-1] += -(a / params.dx) * torch.diff(P[:, 1:-1, 1:-1], dim=0)
-        Vy[1:-1, 1:-1, 1:-1] += -(a / params.dy) * torch.diff(P[1:-1, :, 1:-1], dim=1)
-        Vz[1:-1, 1:-1, 1:-1] += -(a / params.dz) * torch.diff(P[1:-1, 1:-1, :], dim=2)
+        Vx[..., 1:-1, 1:-1, 1:-1] += -(a / params.dx) * torch.diff(P[..., :, 1:-1, 1:-1], dim=-3)
+        Vy[..., 1:-1, 1:-1, 1:-1] += -(a / params.dy) * torch.diff(P[..., 1:-1, :, 1:-1], dim=-2)
+        Vz[..., 1:-1, 1:-1, 1:-1] += -(a / params.dz) * torch.diff(P[..., 1:-1, 1:-1, :], dim=-1)
         return Vx, Vy, Vz
 
     return update
@@ -150,9 +153,9 @@ def _pressure_update(params: Params):
 
     def update(P, Vx, Vy, Vz):
         div = (
-            torch.diff(Vx, dim=0) / params.dx
-            + torch.diff(Vy, dim=1) / params.dy
-            + torch.diff(Vz, dim=2) / params.dz
+            torch.diff(Vx, dim=-3) / params.dx
+            + torch.diff(Vy, dim=-2) / params.dy
+            + torch.diff(Vz, dim=-1) / params.dz
         )
         return P - b * div
 
@@ -162,22 +165,24 @@ def _pressure_update(params: Params):
 def make_step(params: Params, *, batch: bool = False):
     """One leapfrog step ``(P, Vx, Vy, Vz) -> (P, Vx, Vy, Vz)``: velocity
     update, one 3-field `update_halo` (overlapped with the interior velocity
-    update when ``params.hide_comm``), then P from the fresh velocities."""
-    if batch:
-        _common.later("batch=True", "10")
+    update when ``params.hide_comm``), then P from the fresh velocities.
+    ``batch=True``: the ensemble step over batched fields (`models._batched`),
+    member for member bit-identical to the unbatched step."""
     v_update = _velocity_update(params)
     p_update = _pressure_update(params)
     if params.hide_comm:
-        v_exchanged = hide_communication(v_update, radius=1)
+        v_exchanged = overlapped(v_update, 1, None, lead=int(batch))
     else:
+        halo = _batched.update_halo if batch else update_halo
+
         def v_exchanged(*s):
-            return update_halo(*v_update(*s))
+            return halo(*v_update(*s))
 
     def step(P, Vx, Vy, Vz):
         Vx, Vy, Vz = v_exchanged(P, Vx, Vy, Vz)
         return p_update(P, Vx, Vy, Vz), Vx, Vy, Vz
 
-    return step
+    return _batched.checked(step, batch)
 
 
 def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
@@ -221,17 +226,18 @@ def make_multi_step(
     ``pipelined`` (default auto): the fused groups' pipelined schedule, as
     in `models.diffusion3d.make_multi_step` (`pipelined_support_error`).
 
-    ``batch=True``, ``coalesce=True`` and ``autotune`` come with later
-    slices and raise `NotImplementedError`.
+    ``batch=True``: every cadence over batched fields (`models._batched`),
+    one kernel launch per group and one exchange per dimension for all B
+    members.  ``coalesce=True`` and ``autotune`` come with later slices and
+    raise `NotImplementedError`.
     """
-    if batch:
-        _common.later("batch=True", "10")
     if autotune:
         _common.later("autotune", "15")
     if coalesce:
         _common.later("coalesce=True", "2")
     v_update = _velocity_update(params)
     p_update = _pressure_update(params)
+    halo = _batched.update_halo if batch else update_halo
     gg = global_grid()
     bx, by = fused_tile if fused_tile is not None else (None, None)
     if (bx is None) != (by is None):
@@ -266,6 +272,7 @@ def make_multi_step(
         run_groups = _fused.fused_groups(
             fused_leapfrog, "acoustic", [fused_k] * (nsteps // fused_k), k=fused_k,
             width=fused_k, pipelined=pipelined, fused_tile=fused_tile, stagger=1, gg=gg,
+            batch=batch,
         )
 
         def fused_multi_step(*s):
@@ -275,7 +282,7 @@ def make_multi_step(
                 s,
             )
 
-        return fused_multi_step
+        return _batched.checked(fused_multi_step, batch)
 
     if exchange_every < 1:
         raise ValueError(f"exchange_every must be >= 1 (got {exchange_every})")
@@ -297,17 +304,17 @@ def make_multi_step(
             for _ in range(nsteps // w):
                 for _ in range(w):
                     s = leapfrog(s)
-                s = update_halo(*s, width=w)
+                s = halo(*s, width=w)
             return s
 
-        return slab_multi_step
+        return _batched.checked(slab_multi_step, batch)
 
     if pipelined:
         raise ValueError(
             "pipelined applies to the group cadences (fused_k or "
             "exchange_every > 1); the per-step path has no group schedule."
         )
-    step = make_step(params)
+    step = make_step(params, batch=batch)
 
     def multi_step(*s):
         for _ in range(nsteps):

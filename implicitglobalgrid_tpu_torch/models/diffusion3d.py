@@ -14,7 +14,10 @@ the hand-written CUDA kernel (`ops.fused_stencil`), then exchanges a
 width-``k`` slab on a deep-halo grid (``overlap >= 2k``); on a grid that
 exchanges in x or y with another block the groups run on the pipelined
 schedule (`models._fused`).  ``hide_comm=True`` overlaps the per-step exchange with
-the interior update (`ops.overlap.hide_communication`).
+the interior update (`ops.overlap.hide_communication`).  ``batch=True``
+advances an ensemble of B members ``(B, nx, ny, nz)`` (T and Cp batched;
+`models._batched`) on every cadence: one kernel launch and one exchange per
+dimension for all B.
 
 Usage::
 
@@ -34,11 +37,11 @@ import torch
 from ..ops import fused_stencil
 from ..ops.fused_stencil import fused_diffusion_steps
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
-from ..ops.overlap import hide_communication
+from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils.fields import block_from_numpy, coord_fields, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
-from . import _common, _fused
+from . import _batched, _common, _fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,43 +137,46 @@ def setup(
 def _diffusion_update(params: Params):
     """Per-block T update without exchange: the Laplacian of the interior
     added to the interior, the outermost ring frozen (the JAX package's
-    padded-delta form ``T + pad(delta, 1)``)."""
+    padded-delta form ``T + pad(delta, 1)``).  Blocks or batches of them."""
     lam, dt = params.lam, params.dt
     dx, dy, dz = params.dx, params.dy, params.dz
 
     def update(T, Cp):
-        c = T[1:-1, 1:-1, 1:-1]
+        c = T[..., 1:-1, 1:-1, 1:-1]
         lap = (
-            (T[2:, 1:-1, 1:-1] - 2 * c + T[:-2, 1:-1, 1:-1]) / (dx * dx)
-            + (T[1:-1, 2:, 1:-1] - 2 * c + T[1:-1, :-2, 1:-1]) / (dy * dy)
-            + (T[1:-1, 1:-1, 2:] - 2 * c + T[1:-1, 1:-1, :-2]) / (dz * dz)
+            (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) / (dx * dx)
+            + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) / (dy * dy)
+            + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) / (dz * dz)
         )
         # A true division of the scalar by Cp (``scalar / tensor`` in torch
         # is a reciprocal times the scalar, which rounds differently).
-        delta = torch.div(torch.tensor(dt * lam, dtype=T.dtype), Cp[1:-1, 1:-1, 1:-1]) * lap
+        delta = torch.div(torch.tensor(dt * lam, dtype=T.dtype),
+                          Cp[..., 1:-1, 1:-1, 1:-1]) * lap
         out = T.clone()
-        out[1:-1, 1:-1, 1:-1] = c + delta
+        out[..., 1:-1, 1:-1, 1:-1] = c + delta
         return out
 
     return update
 
 
-def _one_step(params: Params):
+def _one_step(params: Params, batch: bool = False):
     """``(T, Cp) -> T``: the update and its exchange, overlapped with
-    ``params.hide_comm`` (bit-identical either way)."""
+    ``params.hide_comm`` (bit-identical either way); ``batch``: of a batch."""
     update = _diffusion_update(params)
     if params.hide_comm:
-        return hide_communication(update, radius=1)
-    return lambda T, Cp: update_halo(update(T, Cp))
+        return overlapped(update, 1, None, lead=int(batch))
+    halo = _batched.update_halo if batch else update_halo
+    return lambda T, Cp: halo(update(T, Cp))
 
 
 def make_step(params: Params, *, batch: bool = False):
     """One time step ``(T, Cp) -> (T, Cp)``: stencil update + halo exchange
-    (overlapped with the interior update when ``params.hide_comm``)."""
-    if batch:
-        _common.later("batch=True", "10")
-    one = _one_step(params)
-    return lambda T, Cp: (one(T, Cp), Cp)
+    (overlapped with the interior update when ``params.hide_comm``).
+    ``batch=True``: the ensemble step over ``(B, nx, ny, nz)`` batched
+    fields (`models._batched`), member for member bit-identical to the
+    unbatched step, with one exchange per dimension for all B members."""
+    one = _one_step(params, batch)
+    return _batched.checked(lambda T, Cp: (one(T, Cp), Cp), batch)
 
 
 def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
@@ -221,14 +227,16 @@ def make_multi_step(
     fused groups; the plain ``exchange_every`` cadence exchanges serialized
     either way, and the per-step path raises.
 
-    ``batch=True`` and ``autotune`` come with later slices and raise
+    ``batch=True``: every cadence over ``(B, nx, ny, nz)`` batched T and Cp
+    (`models._batched`): one kernel launch per group and one exchange per
+    dimension for all B members, member for member bit-identical to the
+    unbatched cadence.  ``autotune`` comes with a later slice and raises
     `NotImplementedError`.
     """
-    if batch:
-        _common.later("batch=True", "10")
     if autotune:
         _common.later("autotune", "15")
     update = _diffusion_update(params)
+    halo = _batched.update_halo if batch else update_halo
     gg = global_grid()
     bx, by = fused_tile if fused_tile is not None else (None, None)
     if (bx is None) != (by is None):
@@ -238,7 +246,7 @@ def make_multi_step(
         for _ in range(nsteps // w):
             for _ in range(w):
                 T = update(T, Cp)
-            T = update_halo(T, width=w)
+            T = halo(T, width=w)
         return T, Cp
 
     if fused_k:
@@ -262,6 +270,7 @@ def make_multi_step(
         run_groups = _fused.fused_groups(
             fused_stencil, "diffusion", [fused_k] * (nsteps // fused_k), k=fused_k,
             width=fused_k, pipelined=pipelined, fused_tile=fused_tile, stagger=0, gg=gg,
+            batch=batch,
         )
 
         def fused_multi_step(T, Cp):
@@ -272,7 +281,7 @@ def make_multi_step(
             )
             return T, Cp
 
-        return fused_multi_step
+        return _batched.checked(fused_multi_step, batch)
 
     if exchange_every < 1:
         raise ValueError(f"exchange_every must be >= 1 (got {exchange_every})")
@@ -288,20 +297,20 @@ def make_multi_step(
                 f"nsteps={nsteps} must be a multiple of exchange_every={exchange_every}"
             )
         require_deep_halo(exchange_every, gg)
-        return lambda T, Cp: slab_cadence(T, Cp, exchange_every)
+        return _batched.checked(lambda T, Cp: slab_cadence(T, Cp, exchange_every), batch)
     if pipelined:
         raise ValueError(
             "pipelined applies to the group cadences (fused_k or "
             "exchange_every > 1); the per-step path has no group schedule."
         )
-    one = _one_step(params)
+    one = _one_step(params, batch)
 
     def multi_step(T, Cp):
         for _ in range(nsteps):
             T = one(T, Cp)
         return T, Cp
 
-    return multi_step
+    return _batched.checked(multi_step, batch)
 
 
 def run(nt: int, nx: int = 128, ny: int = 128, nz: int = 128, *,

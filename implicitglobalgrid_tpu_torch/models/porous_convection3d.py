@@ -18,7 +18,10 @@ PT iterations between slab exchanges in the hand-written CUDA kernel
 (`ops.fused_pt`), on the pipelined group schedule where the grid exchanges
 in x or y with another block (`models._fused`).  ``hide_comm=True`` overlaps each PT
 iteration's ``Pf`` exchange with the interior pressure update
-(`ops.overlap.hide_communication`).
+(`ops.overlap.hide_communication`).  ``batch=True`` advances an ensemble of
+B members (every field with a leading B axis; `models._batched`) on every
+cadence: one kernel launch and one exchange per dimension for all B;
+`make_batched_residual` is its per-member convergence probe.
 
 Usage::
 
@@ -34,15 +37,16 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from ..ops import fused_pt
 from ..ops.fused_pt import fused_pt_iterations
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
-from ..ops.overlap import hide_communication
+from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils.fields import block_from_numpy, coord_fields, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
-from . import _common, _fused
+from . import _batched, _common, _fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +88,7 @@ def state_from_numpy(T, Pf, qDx, qDy, qDz, *, coords=None, device=None):
 
 
 def _inn(A):
-    return A[1:-1, 1:-1, 1:-1]
+    return A[..., 1:-1, 1:-1, 1:-1]
 
 
 def setup(
@@ -148,16 +152,16 @@ def setup(
 
 def _flux_update(params: Params):
     """Per-block Darcy flux relaxation without exchange: interior faces only
-    (boundary faces frozen, the no-flow walls)."""
+    (boundary faces frozen, the no-flow walls).  Blocks or batches of them."""
     th = params.theta_q
     dx, dy, dz = params.dx, params.dy, params.dz
 
     def update(T, Pf, qDx, qDy, qDz):
         # Relaxation toward -grad(Pf) + Ra*lam_T * T (averaged onto z faces).
-        fx = -torch.diff(Pf[:, 1:-1, 1:-1], dim=0) / dx
-        fy = -torch.diff(Pf[1:-1, :, 1:-1], dim=1) / dy
-        tz = 0.5 * (T[1:-1, 1:-1, 1:] + T[1:-1, 1:-1, :-1])
-        fz = -torch.diff(Pf[1:-1, 1:-1, :], dim=2) / dz + params.Ra * params.lam_T * tz
+        fx = -torch.diff(Pf[..., :, 1:-1, 1:-1], dim=-3) / dx
+        fy = -torch.diff(Pf[..., 1:-1, :, 1:-1], dim=-2) / dy
+        tz = 0.5 * (T[..., 1:-1, 1:-1, 1:] + T[..., 1:-1, 1:-1, :-1])
+        fz = -torch.diff(Pf[..., 1:-1, 1:-1, :], dim=-1) / dz + params.Ra * params.lam_T * tz
         out = []
         for q, f in ((qDx, fx), (qDy, fy), (qDz, fz)):
             delta = th * (f - _inn(q))
@@ -176,29 +180,37 @@ def _pressure_update(params: Params):
     dx, dy, dz = params.dx, params.dy, params.dz
 
     def update(Pf, qDx, qDy, qDz):
-        div = (
-            torch.diff(qDx, dim=0) / dx
-            + torch.diff(qDy, dim=1) / dy
-            + torch.diff(qDz, dim=2) / dz
-        )
-        return Pf - bp * div
+        return Pf - bp * _divergence(qDx, qDy, qDz, params)
 
     return update
 
 
-def _pt_iteration(params: Params):
+def _divergence(qDx, qDy, qDz, params: Params):
+    """The cell divergence of the fluxes, ``diff/dx`` per axis (the model's
+    form, not the kernel's folded one)."""
+    return (
+        torch.diff(qDx, dim=-3) / params.dx
+        + torch.diff(qDy, dim=-2) / params.dy
+        + torch.diff(qDz, dim=-1) / params.dz
+    )
+
+
+def _pt_iteration(params: Params, batch: bool = False):
     """One PT relaxation: flux update (+buoyancy) on interior faces,
     pressure update at all cells, halo exchange of ``Pf`` alone (the fluxes'
     interior faces are recomputed from post-exchange ``Pf`` each
     iteration).  With ``params.hide_comm`` the ``Pf`` exchange overlaps the
-    interior pressure update (`hide_communication`)."""
+    interior pressure update (`hide_communication`).  ``batch``: of a
+    batch."""
     flux_update = _flux_update(params)
     p_update = _pressure_update(params)
     if params.hide_comm:
-        p_exchanged = hide_communication(p_update, radius=1)
+        p_exchanged = overlapped(p_update, 1, None, lead=int(batch))
     else:
+        halo = _batched.update_halo if batch else update_halo
+
         def p_exchanged(*s):
-            return update_halo(p_update(*s))
+            return halo(p_update(*s))
 
     def iteration(T, Pf, qDx, qDy, qDz):
         qDx, qDy, qDz = flux_update(T, Pf, qDx, qDy, qDz)
@@ -208,7 +220,8 @@ def _pt_iteration(params: Params):
 
 
 def _temperature_update(params: Params):
-    """Explicit upwind advection + diffusion of T (interior), frozen walls."""
+    """Explicit upwind advection + diffusion of T (interior), frozen walls.
+    Blocks or batches of them."""
     dx, dy, dz = params.dx, params.dy, params.dz
     lam = params.lam_T
     iphi = 1.0 / params.phi
@@ -217,21 +230,21 @@ def _temperature_update(params: Params):
     def update(T, qDx, qDy, qDz):
         c = _inn(T)
         lap = (
-            (T[2:, 1:-1, 1:-1] - 2 * c + T[:-2, 1:-1, 1:-1]) / (dx * dx)
-            + (T[1:-1, 2:, 1:-1] - 2 * c + T[1:-1, :-2, 1:-1]) / (dy * dy)
-            + (T[1:-1, 1:-1, 2:] - 2 * c + T[1:-1, 1:-1, :-2]) / (dz * dz)
+            (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) / (dx * dx)
+            + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) / (dy * dy)
+            + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) / (dz * dz)
         )
         # Upwind advective derivatives at interior cells from face fluxes.
-        qxm, qxp = qDx[1:-2, 1:-1, 1:-1], qDx[2:-1, 1:-1, 1:-1]
-        qym, qyp = qDy[1:-1, 1:-2, 1:-1], qDy[1:-1, 2:-1, 1:-1]
-        qzm, qzp = qDz[1:-1, 1:-1, 1:-2], qDz[1:-1, 1:-1, 2:-1]
+        qxm, qxp = qDx[..., 1:-2, 1:-1, 1:-1], qDx[..., 2:-1, 1:-1, 1:-1]
+        qym, qyp = qDy[..., 1:-1, 1:-2, 1:-1], qDy[..., 1:-1, 2:-1, 1:-1]
+        qzm, qzp = qDz[..., 1:-1, 1:-1, 1:-2], qDz[..., 1:-1, 1:-1, 2:-1]
         adv = (
-            qxm.clamp_min(0.0) * ((c - T[:-2, 1:-1, 1:-1]) / dx)
-            + qxp.clamp_max(0.0) * ((T[2:, 1:-1, 1:-1] - c) / dx)
-            + qym.clamp_min(0.0) * ((c - T[1:-1, :-2, 1:-1]) / dy)
-            + qyp.clamp_max(0.0) * ((T[1:-1, 2:, 1:-1] - c) / dy)
-            + qzm.clamp_min(0.0) * ((c - T[1:-1, 1:-1, :-2]) / dz)
-            + qzp.clamp_max(0.0) * ((T[1:-1, 1:-1, 2:] - c) / dz)
+            qxm.clamp_min(0.0) * ((c - T[..., :-2, 1:-1, 1:-1]) / dx)
+            + qxp.clamp_max(0.0) * ((T[..., 2:, 1:-1, 1:-1] - c) / dx)
+            + qym.clamp_min(0.0) * ((c - T[..., 1:-1, :-2, 1:-1]) / dy)
+            + qyp.clamp_max(0.0) * ((T[..., 1:-1, 2:, 1:-1] - c) / dy)
+            + qzm.clamp_min(0.0) * ((c - T[..., 1:-1, 1:-1, :-2]) / dz)
+            + qzp.clamp_max(0.0) * ((T[..., 1:-1, 1:-1, 2:] - c) / dz)
         )
         delta = dt * (lam * lap - iphi * adv)
         T = T.clone()
@@ -241,18 +254,19 @@ def _temperature_update(params: Params):
     return update
 
 
-def _build_block_step(params: Params):
+def _build_block_step(params: Params, batch: bool = False):
     """One whole time step at the per-iteration exchange cadence: ``npt``
     PT iterations (each exchanging ``Pf``), the once-per-step 3-field flux
     exchange, then the T update and its exchange."""
-    pt_iter = _pt_iteration(params)
+    pt_iter = _pt_iteration(params, batch)
     t_update = _temperature_update(params)
+    halo = _batched.update_halo if batch else update_halo
 
     def block_step(T, Pf, qDx, qDy, qDz):
         for _ in range(params.npt):
             Pf, qDx, qDy, qDz = pt_iter(T, Pf, qDx, qDy, qDz)
-        qDx, qDy, qDz = update_halo(qDx, qDy, qDz)
-        T = update_halo(t_update(T, qDx, qDy, qDz))
+        qDx, qDy, qDz = halo(qDx, qDy, qDz)
+        T = halo(t_update(T, qDx, qDy, qDz))
         return T, Pf, qDx, qDy, qDz
 
     return block_step
@@ -260,10 +274,10 @@ def _build_block_step(params: Params):
 
 def make_step(params: Params, *, batch: bool = False):
     """One time step: ``npt`` PT pressure iterations + the T update (see
-    `_build_block_step`)."""
-    if batch:
-        _common.later("batch=True", "10")
-    return _build_block_step(params)
+    `_build_block_step`).  ``batch=True``: the ensemble step over batched
+    fields (`models._batched`), member for member bit-identical to the
+    unbatched step."""
+    return _batched.checked(_build_block_step(params, batch), batch)
 
 
 def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
@@ -340,11 +354,11 @@ def make_multi_step(
     the split is gated at ``k = w`` and its tile pinned for every chunk of
     a ragged schedule.
 
-    ``batch=True``, ``coalesce=True`` and ``autotune`` come with later
-    slices and raise `NotImplementedError`.
+    ``batch=True``: every cadence over batched fields (`models._batched`),
+    one kernel launch per chunk and one exchange per dimension for all B
+    members.  ``coalesce=True`` and ``autotune`` come with later slices and
+    raise `NotImplementedError`.
     """
-    if batch:
-        _common.later("batch=True", "10")
     if autotune:
         _common.later("autotune", "15")
     if coalesce:
@@ -355,6 +369,7 @@ def make_multi_step(
     t_update = _temperature_update(params)
     flux_update = _flux_update(params)
     p_update = _pressure_update(params)
+    halo = _batched.update_halo if batch else update_halo
     npt = params.npt
     gg = global_grid()
 
@@ -373,17 +388,17 @@ def make_multi_step(
             for _ in range(lead):
                 s = pt_iterate(T, s)
                 if active:
-                    s = update_halo(*s)
+                    s = halo(*s)
             if run_chunks is not None:
                 s = run_chunks(T, s)
             for ki in chunks if run_chunks is None else ():
                 for _ in range(ki):
                     s = pt_iterate(T, s)
                 if active:
-                    s = update_halo(*s, width=w)
+                    s = halo(*s, width=w)
             T = t_update(T, *s[1:])
             if active:
-                T = update_halo(T)
+                T = halo(T)
             return (T, *s)
 
         return block_step
@@ -420,7 +435,7 @@ def make_multi_step(
         # keeps it legal: a smaller window).
         run_groups = _fused.fused_groups(
             fused_pt, "porous", chunks, k=w, width=w, pipelined=pipelined,
-            fused_tile=fused_tile, stagger=1, gg=gg,
+            fused_tile=fused_tile, stagger=1, gg=gg, batch=batch,
         )
 
         def run_chunks(T, s):
@@ -451,7 +466,7 @@ def make_multi_step(
                 "exchange_every > 1); the per-iteration path has no group "
                 "schedule."
             )
-        block_step = make_step(params)
+        block_step = _build_block_step(params, batch)
 
     if nsteps > 64:
         raise ValueError(
@@ -466,7 +481,7 @@ def make_multi_step(
             s = block_step(*s)
         return s
 
-    return multi
+    return _batched.checked(multi, batch)
 
 
 def run(nt: int, nx: int = 32, ny: int = 32, nz: int = 32, *,
@@ -480,3 +495,24 @@ def run(nt: int, nx: int = 32, ny: int = 32, nz: int = 32, *,
 
 def temperature(state):
     return state[0]
+
+
+def make_batched_residual(params: Params):
+    """Per-member PT residual of a batched state: ``(B,)`` tensor.
+
+    Member ``b``'s residual is the global max of its block defects, ``max
+    |div(qD)|`` over interior cells (the pressure equation's residual, the
+    criterion the PT relaxation drives to zero; the outermost ring evolves
+    under frozen faces and is left out), then one ``all_reduce(MAX)`` of the
+    ``(B,)`` vector across ranks, so every rank masks the same members (the
+    serving loop's convergence criterion; JAX ``make_batched_residual``).
+    """
+
+    def residual(T, Pf, qDx, qDy, qDz):
+        _batched.check_batched((T, Pf, qDx, qDy, qDz))
+        res = _inn(_divergence(qDx, qDy, qDz, params)).abs().flatten(1).amax(1)
+        if global_grid().nprocs > 1:
+            dist.all_reduce(res, op=dist.ReduceOp.MAX)
+        return res
+
+    return residual

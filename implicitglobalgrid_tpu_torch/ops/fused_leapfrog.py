@@ -22,7 +22,11 @@ the padding never enters the CUDA kernel.  The kernel is built with
 the card the two agree bit for bit.
 
 Both versions take a launch tile and a subset launch (``tile``,
-``tile_sel``, ``carry_in``; see `ops.fused_stencil` and `ops.overlap`).
+``tile_sel``, ``carry_in``; see `ops.fused_stencil` and `ops.overlap`), and
+a batch of B independent blocks (every field with a leading ``B`` axis, an
+ensemble: `models._batched`), advanced by one launch.  The staggered
+kernels march all of x in one segment, so a batch adds blocks to the grid
+and cuts nothing.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import torch
 
 from . import _kernels
 from . import overlap as _overlap
-from .fused_stencil import (  # one envelope for every kernel
+from .fused_stencil import (  # one envelope and launch grid for every kernel
     _DTYPES,
     _SMEM_PER_BLOCK,
+    check_grid,
     fused_support_error,
 )
 
@@ -159,8 +164,9 @@ def validate(cells, faces, k: int, what: str, *, tile=None, tile_sel: str = "all
              carry_in=None):
     """Check the cell fields (one shape) and the x/y/z face fields of a
     staggered kernel call and its launch request; raise `ValueError` on
-    what the kernel does not take.  Returns ``(tile, carry)``: the launch
-    tile (None: the default one) and ``carry_in`` as a tuple (or None)."""
+    what the kernel does not take.  Every field may carry one leading batch
+    axis, the same for all.  Returns ``(tile, carry)``: the launch tile
+    (None: the default one) and ``carry_in`` as a tuple (or None)."""
     fields = (*cells, *faces)
     if len({a.dtype for a in fields}) != 1:
         raise ValueError(f"{what}: the fields must share a dtype (got {[a.dtype for a in fields]})")
@@ -176,18 +182,20 @@ def validate(cells, faces, k: int, what: str, *, tile=None, tile_sel: str = "all
         raise ValueError(
             f"{what}: the cell fields must share a shape (got {[tuple(a.shape) for a in cells]})"
         )
-    if tuple(tuple(a.shape) for a in faces) != face_shapes(shape):
+    lead, block = shape[:-3], shape[-3:]
+    want = tuple(lead + f for f in face_shapes(block))
+    if tuple(tuple(a.shape) for a in faces) != want:
         raise ValueError(
-            f"{what}: the face fields must have shapes {face_shapes(shape)} for cells "
+            f"{what}: the face fields must have shapes {want} for cells "
             f"{shape} (got {[tuple(a.shape) for a in faces]})"
         )
     itemsize = cells[0].element_size()
     if tile is not None:
-        tile = check_tile(shape, k, tile, itemsize)
+        tile = check_tile(block, k, tile, itemsize)
     carry = None
     if tile_sel != "all":
-        tile = tile or tile_for(shape, k, itemsize)
-        carry = _overlap.check_tile_subset(tile_sel, carry_in, shape[:2], tile,
+        tile = tile or tile_for(block, k, itemsize)
+        carry = _overlap.check_tile_subset(tile_sel, carry_in, block[:2], tile,
                                            (cells[0], *faces))
     device = cells[0].device
     if device.type == "cpu":
@@ -196,11 +204,8 @@ def validate(cells, faces, k: int, what: str, *, tile=None, tile_sel: str = "all
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not {device}")
     if not all(a.is_contiguous() for a in fields):
         raise ValueError(f"{what} needs contiguous fields")
-    gz, gy, gx = grid(shape, tile or tile_for(shape, k, itemsize))
-    if tile_sel != "all":
-        gy, gx = _overlap.tile_subset_count(tile_sel, gx, gy), 1
-    if gy > 65535 or gx > 65535:
-        raise ValueError(f"block {shape} exceeds the kernel's launch grid")
+    check_grid(shape[0] if lead else 1, block[:2], tile or tile_for(block, k, itemsize),
+               tile_sel)
     return tile, carry
 
 
@@ -208,21 +213,23 @@ def launch(source: str, inputs, like, k: int, coeffs, tile, tile_sel: str, carry
     """Launch ``csrc/<source>.cu``'s kernel (a staggered wrapper's CUDA
     half): ``inputs`` in its argument order, outputs shaped like ``like``
     (or ``carry``, a ``mid*`` launch's ring outputs), the launch tile
-    (default `tile_for`) and the subset selector.  Returns the outputs."""
+    (default `tile_for`) and the subset selector; a batched ``like[0]``
+    ``(B, n0, n1, n2)`` launches once for all B members.  Returns the
+    outputs."""
     shape = tuple(like[0].shape)
-    tile = tile or tile_for(shape, k, like[0].element_size())
-    sel = _overlap.TILE_SELS.index(tile_sel)
+    block, nb = shape[-3:], shape[0] if len(shape) == 4 else 1
+    tile = tile or tile_for(block, k, like[0].element_size())
     suffix, cfloat = _DTYPES[like[0].dtype]
     fn = _kernels.entry(
-        source, f"igg_{source}{'_subset' if sel else ''}_{suffix}",
-        [ctypes.c_void_p] * (len(inputs) + len(like)) + [ctypes.c_int] * 4
-        + [cfloat] * len(coeffs) + [ctypes.c_int] * (4 if sel else 3) + [ctypes.c_void_p],
+        source, f"igg_{source}_{suffix}",
+        [ctypes.c_void_p] * (len(inputs) + len(like)) + [ctypes.c_int] * 5
+        + [cfloat] * len(coeffs) + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     outs = carry if carry is not None else tuple(torch.empty_like(a) for a in like)
     with torch.cuda.device(like[0].device):
         stream = torch.cuda.current_stream(like[0].device).cuda_stream
-        code = fn(*(a.data_ptr() for a in (*inputs, *outs)), *shape, k, *coeffs, *tile,
-                  *((sel,) if sel else ()), stream)
+        code = fn(*(a.data_ptr() for a in (*inputs, *outs)), nb, *block, k, *coeffs, *tile,
+                  _overlap.TILE_SELS.index(tile_sel), stream)
     _kernels.check(source, code, f"{source} launch")
     return outs
 
@@ -231,28 +238,36 @@ def fused_leapfrog_steps_reference(P, Vx, Vy, Vz, k: int, cax: float, cay: float
                                    caz: float, b: float, idx: float, idy: float, idz: float,
                                    *, tile=None, tile_sel: str = "all", carry_in=None):
     """``k`` leapfrog steps with the kernel's constant folding (plain
-    PyTorch); a subset launch copies the subset's owned region of the full
-    result into ``carry_in`` (or fresh tensors)."""
-    shape = tuple(P.shape)
+    PyTorch), on a block or a batch of them; a subset launch copies the
+    subset's owned region of the full result into ``carry_in`` (or fresh
+    tensors)."""
     for _ in range(k):
         Vx, Vy, Vz = Vx.clone(), Vy.clone(), Vz.clone()
-        Vx[1:-1, 1:-1, 1:-1] -= cax * (P[1:, 1:-1, 1:-1] - P[:-1, 1:-1, 1:-1])
-        Vy[1:-1, 1:-1, 1:-1] -= cay * (P[1:-1, 1:, 1:-1] - P[1:-1, :-1, 1:-1])
-        Vz[1:-1, 1:-1, 1:-1] -= caz * (P[1:-1, 1:-1, 1:] - P[1:-1, 1:-1, :-1])
-        div = (
-            (Vx[1:] - Vx[:-1]) * idx + (Vy[:, 1:] - Vy[:, :-1]) * idy
-        ) + (Vz[:, :, 1:] - Vz[:, :, :-1]) * idz
-        P = P - b * div
-    return subset_of((P, Vx, Vy, Vz), k, tile, tile_sel, carry_in, shape)
+        Vx[..., 1:-1, 1:-1, 1:-1] -= cax * (P[..., 1:, 1:-1, 1:-1] - P[..., :-1, 1:-1, 1:-1])
+        Vy[..., 1:-1, 1:-1, 1:-1] -= cay * (P[..., 1:-1, 1:, 1:-1] - P[..., 1:-1, :-1, 1:-1])
+        Vz[..., 1:-1, 1:-1, 1:-1] -= caz * (P[..., 1:-1, 1:-1, 1:] - P[..., 1:-1, 1:-1, :-1])
+        P = P - b * divergence(Vx, Vy, Vz, idx, idy, idz)
+    return subset_of((P, Vx, Vy, Vz), k, tile, tile_sel, carry_in)
 
 
-def subset_of(full, k: int, tile, tile_sel: str, carry_in, shape):
+def divergence(Vx, Vy, Vz, idx: float, idy: float, idz: float):
+    """The kernels' cell divergence of face fields, ``((dVx)*idx +
+    (dVy)*idy) + (dVz)*idz``, on blocks or batches of them."""
+    return (
+        (Vx[..., 1:, :, :] - Vx[..., :-1, :, :]) * idx
+        + (Vy[..., :, 1:, :] - Vy[..., :, :-1, :]) * idy
+    ) + (Vz[..., :, :, 1:] - Vz[..., :, :, :-1]) * idz
+
+
+def subset_of(full, k: int, tile, tile_sel: str, carry_in):
     """A plain staggered version's result for its launch request: ``full``
-    itself for ``"all"``, else the subset's owned region of it."""
+    itself for ``"all"``, else the subset's owned region of it (``full[0]``
+    holds the cells, batched or not)."""
     if tile_sel == "all":
         return full
-    tile = tile or tile_for(shape, k, full[0].element_size())
-    return _overlap.copy_subset(full, tile_sel, carry_in, shape[:2], tile)
+    block = tuple(full[0].shape[-3:])
+    tile = tile or tile_for(block, k, full[0].element_size())
+    return _overlap.copy_subset(full, tile_sel, carry_in, block[:2], tile)
 
 
 def fused_leapfrog_steps(P, Vx, Vy, Vz, k: int, cax: float, cay: float, caz: float,

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from .fused_leapfrog import (  # noqa: F401  (re-export: one envelope and layout)
     default_tile,
+    divergence,
     face_shapes,
     fused_support_error,
     launch,
@@ -44,30 +45,28 @@ def fused_pt_iterations_reference(T, Pf, qDx, qDy, qDz, k: int, th: float, idx: 
                                   idy: float, idz: float, ralam: float, bp: float, *,
                                   tile=None, tile_sel: str = "all", carry_in=None):
     """``k`` PT iterations with the kernel's constant folding (plain
-    PyTorch); a subset launch copies the subset's owned region of the full
-    result into ``carry_in`` (or fresh tensors)."""
-    shape = tuple(Pf.shape)
-    buoyancy = ralam * (0.5 * (T[1:-1, 1:-1, 1:] + T[1:-1, 1:-1, :-1]))
+    PyTorch), on a block or a batch of them; a subset launch copies the
+    subset's owned region of the full result into ``carry_in`` (or fresh
+    tensors)."""
+    buoyancy = ralam * (0.5 * (T[..., 1:-1, 1:-1, 1:] + T[..., 1:-1, 1:-1, :-1]))
     for _ in range(k):
-        fx = -idx * (Pf[1:, 1:-1, 1:-1] - Pf[:-1, 1:-1, 1:-1])
-        fy = -idy * (Pf[1:-1, 1:, 1:-1] - Pf[1:-1, :-1, 1:-1])
-        fz = -idz * (Pf[1:-1, 1:-1, 1:] - Pf[1:-1, 1:-1, :-1]) + buoyancy
+        fx = -idx * (Pf[..., 1:, 1:-1, 1:-1] - Pf[..., :-1, 1:-1, 1:-1])
+        fy = -idy * (Pf[..., 1:-1, 1:, 1:-1] - Pf[..., 1:-1, :-1, 1:-1])
+        fz = -idz * (Pf[..., 1:-1, 1:-1, 1:] - Pf[..., 1:-1, 1:-1, :-1]) + buoyancy
         qDx, qDy, qDz = qDx.clone(), qDy.clone(), qDz.clone()
         for q, f in ((qDx, fx), (qDy, fy), (qDz, fz)):
-            inner = q[1:-1, 1:-1, 1:-1]
+            inner = q[..., 1:-1, 1:-1, 1:-1]
             inner += th * (f - inner)
-        div = (
-            (qDx[1:] - qDx[:-1]) * idx + (qDy[:, 1:] - qDy[:, :-1]) * idy
-        ) + (qDz[:, :, 1:] - qDz[:, :, :-1]) * idz
-        Pf = Pf - bp * div
-    return subset_of((Pf, qDx, qDy, qDz), k, tile, tile_sel, carry_in, shape)
+        Pf = Pf - bp * divergence(qDx, qDy, qDz, idx, idy, idz)
+    return subset_of((Pf, qDx, qDy, qDz), k, tile, tile_sel, carry_in)
 
 
 def fused_pt_iterations(T, Pf, qDx, qDy, qDz, k: int, th: float, idx: float, idy: float,
                         idz: float, ralam: float, bp: float, *, tile=None,
                         tile_sel: str = "all", carry_in=None):
     """Advance ``k`` (even, 2..8) PT iterations in one pass; returns new
-    ``(Pf, qDx, qDy, qDz)`` (``T`` is read-only).
+    ``(Pf, qDx, qDy, qDz)`` (``T`` is read-only).  Every field may carry
+    one leading batch axis (B members, one launch).
 
     ``th`` = flux relaxation, ``idx = 1/dx`` (likewise ``idy``, ``idz``),
     ``ralam = Ra*lam_T`` (buoyancy), ``bp`` = pressure relaxation.  CUDA

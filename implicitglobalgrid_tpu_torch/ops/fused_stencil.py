@@ -17,7 +17,9 @@ Both take a subset launch (``tile_sel``, ``carry_in``; `ops.overlap`): the
 ring or mid pass of the pipelined group schedule runs the blocks of only
 the subset's (x segment, y tile) pairs, each still stepping its whole
 window and writing only what it owns, so ring and mid together equal one
-``"all"`` launch tile for tile.
+``"all"`` launch tile for tile.  Both take a batch of B independent blocks
+``(B, n0, n1, n2)`` (T and Cp, an ensemble: `models._batched`): one launch
+advances all B members, each exactly as a launch of its own would.
 
 The kernel is built with ``--fmad=false`` and does the same operations in
 the same order, so on the card it equals the plain version bit for bit.
@@ -128,28 +130,32 @@ def resident_blocks(shape, k: int, itemsize: int) -> int:
 _MIN_SEGMENT = 8
 
 
-def segments(shape, k: int, itemsize: int, resident: int, sms: int) -> int:
-    """x segments per (y, z) tile: as many as fill the card's resident
-    block slots (``resident`` blocks on each of ``sms`` SMs) with the grid,
-    none shorter than ``_MIN_SEGMENT * k`` planes."""
+def segments(shape, k: int, itemsize: int, resident: int, sms: int, nb: int = 1) -> int:
+    """x segments per (y, z) tile of a launch over ``nb`` blocks of
+    ``shape``: as many as fill the card's resident block slots
+    (``resident`` blocks on each of ``sms`` SMs) with the ``nb`` blocks'
+    grids, none shorter than ``_MIN_SEGMENT * k`` planes (an ensemble's
+    members fill the card before x segments do, and each segment re-reads
+    its halo planes)."""
     gz, gy, _ = grid(shape, tile_for(shape, k, itemsize))
-    return max(1, min(resident * sms // (gy * gz), shape[0] // (_MIN_SEGMENT * k)))
+    return max(1, min(resident * sms // (nb * gy * gz), shape[0] // (_MIN_SEGMENT * k)))
 
 
 _occupancy: dict = {}
 
 
-def launch_tile(shape, k: int, itemsize: int, device) -> tuple[int, int, int]:
-    """The tile of a launch on CUDA ``device``: `tile_for`'s (y, z) tile
-    with x cut into `segments`, from the card's resident blocks per SM and
-    SM count (asked once per device, (n1, n2), k and item size)."""
+def launch_tile(shape, k: int, itemsize: int, device, nb: int = 1) -> tuple[int, int, int]:
+    """The tile of a launch over ``nb`` blocks of ``shape`` on CUDA
+    ``device``: `tile_for`'s (y, z) tile with x cut into `segments`, from
+    the card's resident blocks per SM and SM count (asked once per device,
+    (n1, n2), k and item size)."""
     key = (device, tuple(shape[1:]), k, itemsize)
     if key not in _occupancy:
         with torch.cuda.device(device):
             _occupancy[key] = (resident_blocks(shape, k, itemsize),
                                torch.cuda.get_device_properties(device).multi_processor_count)
     _, by, bz = tile_for(shape, k, itemsize)
-    return -(-shape[0] // segments(shape, k, itemsize, *_occupancy[key])), by, bz
+    return -(-shape[0] // segments(shape, k, itemsize, *_occupancy[key], nb)), by, bz
 
 
 def default_tile(shape, k: int, itemsize: int, device) -> tuple[int, int, int]:
@@ -161,11 +167,13 @@ def default_tile(shape, k: int, itemsize: int, device) -> tuple[int, int, int]:
 
 
 def fused_support_error(shape, k: int, dtype) -> str | None:
-    """Why the kernel cannot run this config, or None if it can."""
+    """Why the kernel cannot run this config, or None if it can.  ``shape``:
+    a block's, or a batch's ``(B, n0, n1, n2)``."""
     if k % 2 or not 2 <= k <= 8:
         return f"k must be even and in [2, 8] (got {k})"
-    if len(shape) != 3 or min(shape) < 3:
-        return f"the block must be 3-D with every extent >= 3 (got {tuple(shape)})"
+    if len(shape) not in (3, 4) or min(shape[-3:]) < 3 or min(shape) < 1:
+        return (f"the block must be 3-D, or a batch (B, n0, n1, n2) of them, with every "
+                f"extent >= 3 (got {tuple(shape)})")
     if dtype not in _DTYPES:
         return f"dtype {dtype} is not float32 or float64"
     return None
@@ -174,34 +182,56 @@ def fused_support_error(shape, k: int, dtype) -> str | None:
 def fused_diffusion_steps_reference(T, Cp, k: int, cx: float, cy: float, cz: float, *,
                                     tile=None, tile_sel: str = "all", carry_in=None):
     """``k`` diffusion steps with the kernel's constant folding (plain
-    PyTorch); a subset launch copies the subset's owned region of the full
-    result into ``carry_in`` (or a fresh tensor)."""
-    T0 = T
-    minv = (1 / Cp)[1:-1, 1:-1, 1:-1]
+    PyTorch), on a block or a batch of them; a subset launch copies the
+    subset's owned region of the full result into ``carry_in`` (or a fresh
+    tensor)."""
+    block = tuple(T.shape[-3:])
+    minv = (1 / Cp)[..., 1:-1, 1:-1, 1:-1]
     for _ in range(k):
-        c = T[1:-1, 1:-1, 1:-1]
+        c = T[..., 1:-1, 1:-1, 1:-1]
         lap = (
-            (T[2:, 1:-1, 1:-1] - 2 * c + T[:-2, 1:-1, 1:-1]) * cx
-            + (T[1:-1, 2:, 1:-1] - 2 * c + T[1:-1, :-2, 1:-1]) * cy
-            + (T[1:-1, 1:-1, 2:] - 2 * c + T[1:-1, 1:-1, :-2]) * cz
+            (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) * cx
+            + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) * cy
+            + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) * cz
         )
         T = T.clone()
-        T[1:-1, 1:-1, 1:-1] = c + lap * minv
+        T[..., 1:-1, 1:-1, 1:-1] = c + lap * minv
     if tile_sel == "all":
         return T
-    tile = tile or tile_for(T0.shape, k, T0.element_size())
-    return _overlap.copy_subset((T,), tile_sel, carry_in, T0.shape[:2], tile)[0]
+    tile = tile or tile_for(block, k, T.element_size())
+    return _overlap.copy_subset((T,), tile_sel, carry_in, block[:2], tile)[0]
 
 
-def _entry(dtype, subset: bool = False):
-    """The kernel's C entry for ``dtype`` (the subset launch's: one more int,
-    the selector code)."""
+def _entry(dtype):
+    """The kernel's C entry for ``dtype``: pointers, members, (n0, n1, n2),
+    k, coefficients, tile, selector code, stream."""
     suffix, cfloat = _DTYPES[dtype]
     return _kernels.entry(
-        "fused_diffusion", f"igg_fused_diffusion{'_subset' if subset else ''}_{suffix}",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [cfloat] * 3
-        + [ctypes.c_int] * (4 if subset else 3) + [ctypes.c_void_p],
+        "fused_diffusion", f"igg_fused_diffusion_{suffix}",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [cfloat] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p],
     )
+
+
+def check_grid(nb: int, n01, tile, tile_sel: str) -> None:
+    """Raise if a launch over ``nb`` members of ``n01 = (n0, n1)`` blocks at
+    ``tile`` exceeds the launch grid (65535 blocks along y and z; an
+    ``"all"`` launch folds the members into its x segments, ``nb *
+    segments``, a subset launch has one z entry per member), or the
+    kernels' int x-plane index (member ``m``'s plane ``p`` is ``m * n0 +
+    p``)."""
+    if nb * (n01[0] + 1) >= 2**31:
+        raise ValueError(f"{nb} members of {n01[0]} x planes exceed the kernels' int plane index")
+    gy, gx = -(-n01[1] // tile[1]), -(-n01[0] // tile[0])
+    if tile_sel == "all":
+        ny, nz = gy, nb * gx
+    else:
+        ny, nz = _overlap.tile_subset_count(tile_sel, gx, gy), nb
+    if ny > 65535 or nz > 65535:
+        raise ValueError(
+            f"{nb} member(s) of ({n01[0]}, {n01[1]}, ...) blocks at tile {tuple(tile)} need a "
+            f"launch grid of ({ny}, {nz}) along y and z; the card takes at most 65535 each"
+        )
 
 
 def _validate(T, Cp, k):
@@ -230,22 +260,26 @@ def fused_diffusion_steps(T, Cp, k: int, cx: float, cy: float, cz: float, *, til
                           tile_sel: str = "all", carry_in=None):
     """Advance ``k`` (even, 2..8) diffusion steps in one pass; returns a new T.
 
-    ``cx = dt*lam/dx^2`` (likewise ``cy``, ``cz``).  CUDA tensors go through
-    the kernel (contiguous, float32 or float64, every extent >= 3); CPU
-    tensors through `fused_diffusion_steps_reference`.  ``tile``: the launch
-    tile ``(bx, by, bz)`` (default `default_tile`).  ``tile_sel``: a subset
-    of the (x segment, y tile) pairs (`ops.overlap.TILE_SELS`); a ``mid*``
-    launch writes into ``carry_in``, the matching ``ring*`` launch's output,
-    and returns it.
+    ``cx = dt*lam/dx^2`` (likewise ``cy``, ``cz``).  ``T`` and ``Cp``: one
+    block ``(n0, n1, n2)``, or a batch of B ``(B, n0, n1, n2)`` advanced in
+    one launch.  CUDA tensors go through the kernel (contiguous, float32 or
+    float64, every extent >= 3); CPU tensors through
+    `fused_diffusion_steps_reference`.  ``tile``: the launch tile ``(bx,
+    by, bz)`` of a block (default `default_tile`; a batch's default cuts x
+    into fewer segments, `launch_tile`).  ``tile_sel``: a subset of the (x
+    segment, y tile) pairs (`ops.overlap.TILE_SELS`), in every member; a
+    ``mid*`` launch writes into ``carry_in``, the matching ``ring*``
+    launch's output, and returns it.
     """
     global launches
     _validate(T, Cp, k)
+    block, nb = tuple(T.shape[-3:]), T.shape[0] if T.dim() == 4 else 1
     if tile is not None:
-        tile = check_tile(T.shape, k, tile, T.element_size())
+        tile = check_tile(block, k, tile, T.element_size())
     carry = None
     if tile_sel != "all":
-        tile = tile or default_tile(T.shape, k, T.element_size(), T.device)
-        carry = _overlap.check_tile_subset(tile_sel, carry_in, T.shape[:2], tile, (T,))
+        tile = tile or default_tile(block, k, T.element_size(), T.device)
+        carry = _overlap.check_tile_subset(tile_sel, carry_in, block[:2], tile, (T,))
     if T.device.type == "cpu":
         return fused_diffusion_steps_reference(T, Cp, k, cx, cy, cz, tile=tile,
                                                tile_sel=tile_sel, carry_in=carry)
@@ -253,18 +287,13 @@ def fused_diffusion_steps(T, Cp, k: int, cx: float, cy: float, cz: float, *, til
         raise ValueError(f"fused_diffusion_steps runs on CUDA or CPU tensors, not {T.device}")
     if not (T.is_contiguous() and Cp.is_contiguous()):
         raise ValueError("fused_diffusion_steps needs contiguous T and Cp")
-    n0, n1, n2 = T.shape
-    bx, by, bz = tile = tile or launch_tile(T.shape, k, T.element_size(), T.device)
-    gz, gy, gx = grid(T.shape, tile)
-    sel = _overlap.TILE_SELS.index(tile_sel)
-    if (gy if sel == 0 else _overlap.tile_subset_count(tile_sel, gx, gy)) > 65535 or gx > 65535:
-        raise ValueError(f"block {tuple(T.shape)} exceeds the kernel's launch grid")
+    tile = tile or launch_tile(block, k, T.element_size(), T.device, nb)
+    check_grid(nb, block[:2], tile, tile_sel)
     out = carry[0] if carry is not None else torch.empty_like(T)
     with torch.cuda.device(T.device):
         stream = torch.cuda.current_stream(T.device).cuda_stream
-        args = (T.data_ptr(), Cp.data_ptr(), out.data_ptr(), n0, n1, n2, k, cx, cy, cz,
-                bx, by, bz)
-        code = _entry(T.dtype, sel != 0)(*args, *((sel,) if sel else ()), stream)
+        code = _entry(T.dtype)(T.data_ptr(), Cp.data_ptr(), out.data_ptr(), nb, *block, k,
+                               cx, cy, cz, *tile, _overlap.TILE_SELS.index(tile_sel), stream)
     _kernels.check("fused_diffusion", code, "fused_diffusion_steps launch")
     launches += 1
     return out

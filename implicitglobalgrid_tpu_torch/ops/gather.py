@@ -15,15 +15,38 @@ from ..parallel import grid as _grid
 from ..parallel import topology
 
 
-def gather(A, A_global=None, *, root: int = 0):
+def gather(A, A_global=None, *, root: int = 0, member: int | None = None):
     """Gather field ``A`` to the host on process ``root``.
 
     Returns the assembled numpy array on the root and ``None`` elsewhere.
     With ``A_global`` (a numpy array of ``nprocs * A.numel()`` elements and
     ``A``'s dtype) the root fills it in place and returns ``None``.
-    Collective: every process must call it.
+    ``member=k`` gathers ONE member of a batched (ensemble) field ``(B,
+    *block)`` (`models._batched`): member ``k`` is sliced on the device
+    first, then the ordinary path runs on it.  A batched field without
+    ``member`` is rejected: its leading axis would be misread as grid
+    dimension x.  Collective: every process must call it.
     """
     gg = _grid.global_grid()
+    if member is not None:
+        if A.dim() <= topology.NDIMS:
+            raise ValueError(
+                f"gather(member={member}) needs a batched field (leading ensemble axis "
+                f"over grid-rank blocks, i.e. rank > {topology.NDIMS}); got rank {A.dim()} "
+                "— an unbatched grid field: drop member=."
+            )
+        nb = A.shape[0]
+        if not (0 <= int(member) < nb):
+            raise ValueError(
+                f"member must be in [0, {nb}) for this batched field; got {member}."
+            )
+        A = A[int(member)]
+    elif A.dim() > topology.NDIMS:
+        raise ValueError(
+            f"gather got a rank-{A.dim()} field but the grid has {topology.NDIMS} "
+            "dimensions; for a batched ensemble field pass member=k to gather one member "
+            "(the leading axis is the ensemble, not grid dimension x)."
+        )
     if not (0 <= root < gg.nprocs):
         raise ValueError(
             f"root must be a valid process index in [0, {gg.nprocs}); got {root}."

@@ -22,6 +22,11 @@ also returns them, like the JAX package's functional call.  The transport is
 `torch.distributed.batch_isend_irecv` over contiguous send/receive slabs;
 received slabs are written back with ``copy_``.
 
+A batched (ensemble) field ``(B, *block)`` exchanges with grid dimension
+``d`` on tensor axis ``d + lead`` (``lead = 1``; `models._batched` is its
+entry): each slab carries all B members, so a dimension still moves each
+field in one send/receive pair per side, whatever B.
+
 `begin_slab_exchange` / `finish_slab_exchange` split the same exchange in
 two for the overlap schedules (`ops.overlap.hide_communication`, the
 pipelined group schedule of `models._fused`): ``begin`` starts it on a
@@ -64,10 +69,13 @@ def halosize(dim: int, A, gg=None) -> tuple[int, ...]:
     return (1,)
 
 
-def _validate_fields(fields, gg) -> None:
+def _validate_fields(fields, gg, shapes=None) -> None:
     """Reject fields with no halo, duplicates, and fields off the grid's
-    device.  Mixed dtypes are valid (every field has its own buffers)."""
-    shapes = [local_shape(A) for A in fields]
+    device.  Mixed dtypes are valid (every field has its own buffers).
+    ``shapes``: the fields' block shapes (default: their whole shapes; a
+    batched field's are its members')."""
+    if shapes is None:
+        shapes = [local_shape(A) for A in fields]
     no_halo = [
         i
         for i, shp in enumerate(shapes)
@@ -138,7 +146,7 @@ def _partner_self(gg, d: int) -> bool:
     return (disp % nd == 0) if bool(gg.periods[d]) else (disp == 0)
 
 
-def _patch_slab(slab, d: int, start: int, width: int, received, shp):
+def _patch_slab(slab, d: int, start: int, width: int, received, shp, lead: int = 0):
     """A copy of a dim-``d`` slab with its earlier-dim halo strips replaced
     by the received values: the sequential-dimension corner carry-over at
     slab granularity (JAX ``ops/halo.py::_patch_slab``).
@@ -147,21 +155,22 @@ def _patch_slab(slab, d: int, start: int, width: int, received, shp):
     ``d``; ``received`` maps each already-exchanged dim ``d2 < d`` to its
     ``(lo, hi)`` receive slabs (full field extent along ``d``; None on a
     side with no partner, whose planes keep their values); ``shp`` is the
-    field's shape.  The result equals the slab cut from the array that the
-    earlier dims' exchange already updated.
+    field's block shape, and grid dimension ``d`` is tensor axis ``d +
+    lead``.  The result equals the slab cut from the array that the earlier
+    dims' exchange already updated.
     """
     slab = slab.clone(memory_format=torch.contiguous_format)
     for d2, (lo2, hi2) in received.items():
         for recv, at in ((lo2, 0), (hi2, None)):
             if recv is None:
                 continue
-            w2 = recv.shape[d2]
+            w2 = recv.shape[d2 + lead]
             at = shp[d2] - w2 if at is None else at
-            slab.narrow(d2, at, w2).copy_(recv.narrow(d, start, width))
+            slab.narrow(d2 + lead, at, w2).copy_(recv.narrow(d + lead, start, width))
     return slab
 
 
-def _slab_parts(A, d: int, gg, width: int = 1, received=None):
+def _slab_parts(A, d: int, gg, width: int = 1, received=None, lead: int = 0):
     """The slabs a ``d``-exchange of ``A`` involves.
 
     Returns ``None`` when the dimension exchanges nothing for this field,
@@ -170,9 +179,10 @@ def _slab_parts(A, d: int, gg, width: int = 1, received=None):
     send_hi)``: the slab for my lower partner's top planes and the one for
     my upper partner's bottom planes.  Without ``received`` the slabs are
     views of ``A``; with it (`begin_slab_exchange`), copies patched by
-    `_patch_slab`.
+    `_patch_slab`.  ``lead``: leading ensemble axes of ``A`` (grid
+    dimension ``d`` is tensor axis ``d + lead``).
     """
-    shp = tuple(A.shape)
+    shp = tuple(A.shape[lead:])
     if d >= len(shp):
         return None  # grid validation forces dims[d]==1, period 0 here
     o = ol(d, shape=shp, gg=gg)
@@ -189,8 +199,10 @@ def _slab_parts(A, d: int, gg, width: int = 1, received=None):
         )
 
     def slab(start):
-        s = A.narrow(d, start, width)
-        return _patch_slab(s, d, start, width, received, shp) if received is not None else s
+        s = A.narrow(d + lead, start, width)
+        if received is None:
+            return s
+        return _patch_slab(s, d, start, width, received, shp, lead)
 
     if _partner_self(gg, d):
         return ("self", slab(n - o), slab(o - width))
@@ -228,37 +240,49 @@ def _issue_permute(d: int, gg, send_lo, send_hi):
     return (dist.batch_isend_irecv(ops) if ops else []), recv_lo, recv_hi
 
 
-def _write_planes(A, d: int, width: int, lo, hi) -> None:
+def _write_planes(A, d: int, width: int, lo, hi, lead: int = 0) -> None:
     """Write received ``lo``/``hi`` slabs into ``A``'s planes ``[0, w)`` and
-    ``[n-w, n)`` along ``d`` (a None side keeps its planes)."""
+    ``[n-w, n)`` along grid dimension ``d`` (tensor axis ``d + lead``; a
+    None side keeps its planes)."""
+    a = d + lead
     if hi is not None:
-        A.narrow(d, A.shape[d] - width, width).copy_(hi)
+        A.narrow(a, A.shape[a] - width, width).copy_(hi)
     if lo is not None:
-        A.narrow(d, 0, width).copy_(lo)
+        A.narrow(a, 0, width).copy_(lo)
 
 
-def _exchange_dim(A, d: int, gg, width: int = 1) -> None:
-    p = _slab_parts(A, d, gg, width)
+def _exchange_dim(A, d: int, gg, width: int = 1, lead: int = 0) -> None:
+    p = _slab_parts(A, d, gg, width, lead=lead)
     if p is None:
         return
     if p[0] == "self":
         # Source and target slabs are disjoint (ol >= 2w), so both copies
         # read pre-exchange values.
-        _write_planes(A, d, width, p[1], p[2])
+        _write_planes(A, d, width, p[1], p[2], lead)
         return
     reqs, lo, hi = _issue_permute(d, gg, p[1], p[2])
     for req in reqs:
         req.wait()
-    _write_planes(A, d, width, lo, hi)
+    _write_planes(A, d, width, lo, hi, lead)
 
 
-def exchange_dims(A, dims, *, width: int = 1):
+def exchange_dims(A, dims, *, width: int = 1, lead: int = 0):
     """Exchange one field along the given dimensions only, in place (the
     pipelined schedule's z exchange after the x/y halves)."""
     gg = _grid.global_grid()
     for d in dims:
-        _exchange_dim(A, d, gg, width)
+        _exchange_dim(A, d, gg, width, lead)
     return A
+
+
+def exchange(fields, *, width: int = 1, lead: int = 0) -> None:
+    """The exchange of validated ``fields`` in place: dimensions in
+    sequence, every field per dimension (`update_halo`'s body; the
+    ensemble's through `models._batched.update_halo`, ``lead = 1``)."""
+    gg = _grid.global_grid()
+    for d in range(NDIMS):
+        for A in fields:
+            _exchange_dim(A, d, gg, width, lead)
 
 
 #: High-priority communication stream per CUDA device (`_comm_stream`).
@@ -271,7 +295,7 @@ def _comm_stream(device):
     return _comm_streams[device]
 
 
-def begin_slab_exchange(fields, dims, *, width: int):
+def begin_slab_exchange(fields, dims, *, width: int, lead: int = 0):
     """Start the slab exchange of ``fields`` along ``dims`` WITHOUT writing
     the received planes back; returns one pend list per field for
     `finish_slab_exchange`.
@@ -286,7 +310,7 @@ def begin_slab_exchange(fields, dims, *, width: int):
     communication stream after it waited for the work enqueued so far on
     the current stream, so every dim-``d`` receive is ordered before the
     dim-``d+1`` patch on that stream, never on the host; the tensors stay
-    on the device.
+    on the device.  ``lead``: the fields' leading ensemble axes.
     """
     gg = _grid.global_grid()
     pends = [[] for _ in fields]
@@ -301,7 +325,7 @@ def begin_slab_exchange(fields, dims, *, width: int):
     with torch.cuda.stream(comm):  # no-op for CPU tensors (comm is None)
         for d in dims:
             for i, A in enumerate(fields):
-                p = _slab_parts(A, d, gg, width, received=received[i])
+                p = _slab_parts(A, d, gg, width, received=received[i], lead=lead)
                 if p is None:
                     continue
                 if p[0] == "self":
@@ -311,7 +335,7 @@ def begin_slab_exchange(fields, dims, *, width: int):
                     for req in reqs:
                         req.wait()
                 received[i][d] = (lo, hi)
-                pends[i].append((d, lo, hi))
+                pends[i].append((d, width, lead, lo, hi))
     return pends
 
 
@@ -327,13 +351,13 @@ def finish_slab_exchange(fields, pends):
         main = torch.cuda.current_stream(fields[0].device)
         main.wait_stream(_comm_stream(fields[0].device))
         for pend in pends:
-            for _, lo, hi in pend:
+            for *_, lo, hi in pend:
                 for t in (lo, hi):
                     if t is not None:
                         t.record_stream(main)
     for A, pend in zip(fields, pends):
-        for d, lo, hi in pend:
-            _write_planes(A, d, lo.shape[d] if lo is not None else hi.shape[d], lo, hi)
+        for d, width, lead, lo, hi in pend:
+            _write_planes(A, d, width, lo, hi, lead)
     return tuple(fields)
 
 
@@ -353,7 +377,5 @@ def update_halo(*fields, width: int = 1):
     if width < 1:
         raise ValueError(f"width must be >= 1 (got {width})")
     _validate_fields(fields, gg)
-    for d in range(NDIMS):
-        for A in fields:
-            _exchange_dim(A, d, gg, width)
+    exchange(fields, width=width)
     return fields[0] if len(fields) == 1 else tuple(fields)

@@ -25,7 +25,10 @@ its field arguments (output element ``i`` depends on input elements
 ``i-radius .. i+radius``), returning the new field(s) with the same shapes.
 It is called on cropped windows of the blocks, so it must not hard-code
 sizes, and on ``meta`` tensors to learn its output shapes, once per input
-shapes and dtypes.
+shapes and dtypes.  A batched (ensemble) update (`overlapped` with ``lead
+= 1``, the models' ``batch=True``) takes ``(B, *block)`` fields and is
+written with ``...`` slices, so that grid dimension ``d`` is its axis ``d +
+lead``.
 """
 
 from __future__ import annotations
@@ -177,7 +180,8 @@ def tile_split_sel(active_dims) -> str:
 def check_tile_subset(tile_sel: str, carry_in, n01, tile, outs_like):
     """Validate a tile-subset launch request (shared by the three kernels).
 
-    ``outs_like``: tensors shaped like the launch's outputs (what a ``mid*``
+    ``n01``: a member block's ``(n0, n1)``.  ``outs_like``: tensors shaped
+    like the launch's outputs, batched or not (what a ``mid*``
     ``carry_in`` must match).  Returns ``carry_in`` as a tuple, or None for
     a launch that allocates its outputs.
     """
@@ -223,11 +227,12 @@ def check_tile_subset(tile_sel: str, carry_in, n01, tile, outs_like):
 
 def copy_subset(full, tile_sel: str, carry_in, n01, tile):
     """The plain versions' subset launch: the owned regions of the subset's
-    tiles copied from ``full`` (the whole launch's outputs) into
-    ``carry_in`` or into fresh tensors (unset elsewhere, as the kernel
-    leaves them).  Every z tile belongs to every subset, and a field one
-    longer than the cells along x or y (a face field) takes its top face
-    with the tile that reaches the block's top there."""
+    tiles copied from ``full`` (the whole launch's outputs, batched or
+    not; ``n01`` is a member block's) into ``carry_in`` or into fresh
+    tensors (unset elsewhere, as the kernel leaves them).  Every z tile
+    belongs to every subset, and a field one longer than the cells along x
+    or y (a face field) takes its top face with the tile that reaches the
+    block's top there."""
     outs = carry_in if carry_in is not None else tuple(torch.empty_like(a) for a in full)
     ncx, ncy = tile_grid(n01, tile)
     t_of = tile_subset_map(tile_sel, ncx, ncy)
@@ -236,9 +241,9 @@ def copy_subset(full, tile_sel: str, carry_in, n01, tile):
         x0, y0 = ix * tile[0], iy * tile[1]
         x1, y1 = min(x0 + tile[0], n01[0]), min(y0 + tile[1], n01[1])
         for src, dst in zip(full, outs):
-            xe = x1 + (src.shape[0] - n01[0] if x1 == n01[0] else 0)
-            ye = y1 + (src.shape[1] - n01[1] if y1 == n01[1] else 0)
-            dst[x0:xe, y0:ye].copy_(src[x0:xe, y0:ye])
+            xe = x1 + (src.shape[-3] - n01[0] if x1 == n01[0] else 0)
+            ye = y1 + (src.shape[-2] - n01[1] if y1 == n01[1] else 0)
+            dst[..., x0:xe, y0:ye, :].copy_(src[..., x0:xe, y0:ye, :])
     return tuple(outs)
 
 
@@ -252,12 +257,18 @@ def hide_communication(update_fn=None, *, radius: int = 1, exchange=None):
     """
     if update_fn is None:
         return lambda f: hide_communication(f, radius=radius, exchange=exchange)
+    return overlapped(update_fn, radius, exchange, lead=0)
+
+
+def overlapped(update_fn, radius: int, exchange, *, lead: int):
+    """`hide_communication`'s wrapper for fields with ``lead`` leading
+    ensemble axes (0, or 1 for a batch: `models._batched`)."""
     # (single output?, [(shape, dtype)] of the outputs) per input signature:
     # the meta pass costs milliseconds of host time, so it runs once each.
     outputs: dict = {}
 
     def wrapped(*fields):
-        return _overlapped_update(update_fn, fields, radius, exchange, outputs)
+        return _overlapped_update(update_fn, fields, radius, exchange, outputs, lead)
 
     wrapped.__wrapped__ = update_fn
     return wrapped
@@ -276,7 +287,7 @@ def _as_tuple(out):
     return (out,) if isinstance(out, torch.Tensor) else tuple(out)
 
 
-def _overlapped_update(update_fn, fields, radius, exchange, outputs):
+def _overlapped_update(update_fn, fields, radius, exchange, outputs, lead):
     gg = _grid.global_grid()
     fields = tuple(fields)
     key = tuple((tuple(f.shape), f.dtype) for f in fields)
@@ -285,7 +296,8 @@ def _overlapped_update(update_fn, fields, radius, exchange, outputs):
         outputs[key] = (isinstance(meta_out, torch.Tensor),
                         [(tuple(a.shape), a.dtype) for a in _as_tuple(meta_out)])
     single, out_meta = outputs[key]
-    out_shapes = [shape for shape, _ in out_meta]
+    # Block shapes (a batched output's member's): grid dim d is axis d + lead.
+    out_shapes = [shape[lead:] for shape, _ in out_meta]
     if exchange is None:
         exchange_idx = [
             i for i, s in enumerate(out_shapes)
@@ -325,39 +337,38 @@ def _overlapped_update(update_fn, fields, radius, exchange, outputs):
     # Vx[:-1] against P) hold on the windows as on the whole blocks.
     outs = [torch.empty(shape, dtype=dtype, device=fields[0].device) for shape, dtype in out_meta]
     for d in hdims:
-        w = W[d]
-        n_min = min(f.shape[d] for f in fields if d < f.dim())
+        w, a = W[d], d + lead
+        n_min = min(f.shape[a] for f in fields if a < f.dim())
         for lo in (True, False):
             win = []
             for f in fields:
-                if d >= f.dim():
+                if a >= f.dim():
                     win.append(f)
                     continue
-                e = min(w + radius + (f.shape[d] - n_min), f.shape[d])
-                win.append(f.narrow(d, 0, e) if lo else f.narrow(d, f.shape[d] - e, e))
+                e = min(w + radius + (f.shape[a] - n_min), f.shape[a])
+                win.append(f.narrow(a, 0, e) if lo else f.narrow(a, f.shape[a] - e, e))
             for o, r in zip(outs, _as_tuple(update_fn(*win))):
-                if d >= o.dim():
+                if a >= o.dim():
                     continue
                 if lo:
-                    o.narrow(d, 0, w).copy_(r.narrow(d, 0, w))
+                    o.narrow(a, 0, w).copy_(r.narrow(a, 0, w))
                 else:
-                    o.narrow(d, o.shape[d] - w, w).copy_(r.narrow(d, r.shape[d] - w, w))
+                    o.narrow(a, o.shape[a] - w, w).copy_(r.narrow(a, r.shape[a] - w, w))
 
     # -- 2. the exchange starts from the slabs (it reads only the send
     # planes, which lie inside them) on the communication stream.
     ex = [outs[i] for i in exchange_idx]
-    pend = _halo.begin_slab_exchange(ex, hdims, width=1)
+    pend = _halo.begin_slab_exchange(ex, hdims, width=1, lead=lead)
 
     # -- 3. the interior, on the compute stream meanwhile.
     int_in = list(fields)
     for d in hdims:
-        int_in = [_crop(f, d, W[d] - radius) for f in int_in]
+        int_in = [_crop(f, d + lead, W[d] - radius) for f in int_in]
     for o, r in zip(outs, _as_tuple(update_fn(*int_in))):
         dst, src = o, r
         for d in hdims:
-            if d < o.dim():
-                dst = _crop(dst, d, W[d])
-                src = _crop(src, d, radius)
+            dst = _crop(dst, d + lead, W[d])
+            src = _crop(src, d + lead, radius)
         dst.copy_(src)
 
     # -- 4. the received planes land on the assembled outputs.
@@ -365,6 +376,6 @@ def _overlapped_update(update_fn, fields, radius, exchange, outputs):
     return outs[0] if single else tuple(outs)
 
 
-def _crop(x, d: int, m: int):
-    """``x`` without ``m`` planes at each end of dimension ``d``."""
-    return x if d >= x.dim() else x.narrow(d, m, x.shape[d] - 2 * m)
+def _crop(x, a: int, m: int):
+    """``x`` without ``m`` planes at each end of tensor axis ``a``."""
+    return x if a >= x.dim() else x.narrow(a, m, x.shape[a] - 2 * m)

@@ -1,0 +1,84 @@
+"""The port's public names against the JAX package's.
+
+`implicitglobalgrid_tpu_torch.__all__` equals `implicitglobalgrid_tpu.__all__`
+up to an explicit list of names not ported yet, each tied to the ROADMAP
+Queue A item (or leftover) that brings it, and JAX-mesh-only names.  The
+reference usage ``igg.stencil(igg.hide_communication(step, radius=1))``
+(the JAX package's `tests/test_stencil_overlap.py`) runs on the port.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import implicitglobalgrid_tpu as jigg
+import implicitglobalgrid_tpu_torch as tigg
+
+#: Names of the JAX package's ``__all__`` that the port does not export yet,
+#: with the ROADMAP Queue A item (or leftover) that brings each.
+NOT_YET_PORTED = {
+    "block_slice": "leftover 1",
+    "profile_trace": "14",
+    **dict.fromkeys(("check_fields", "FieldReport", "GuardError", "RunGuard", "watchdog",
+                     "save_checkpoint", "restore_checkpoint", "latest_checkpoint",
+                     "verify_checkpoint", "prune_checkpoints"), "12"),
+    "serving": "13",
+    **dict.fromkeys(("telemetry", "telemetry_snapshot", "dump_metrics", "tracing",
+                     "trace_span", "dump_trace", "liveplane", "profiling", "supervisor",
+                     "fleet"), "14"),
+    "analysis": "15",
+}
+#: JAX-only by design: the names of the device mesh's axes.
+JAX_MESH_ONLY = {"AXIS_NAMES"}
+
+
+@pytest.fixture(autouse=True)
+def _finalize_torch_grid():
+    yield
+    if tigg.grid_is_initialized():
+        tigg.finalize_global_grid()
+
+
+def test_all_matches_jax_up_to_the_names_not_yet_ported():
+    port, ref = set(tigg.__all__), set(jigg.__all__)
+    assert port - ref == {"block_from_numpy"}  # the port's numpy entry for JAX-made fields
+    assert ref - port == set(NOT_YET_PORTED) | JAX_MESH_ONLY
+    assert not set(NOT_YET_PORTED) & JAX_MESH_ONLY
+    assert len(tigg.__all__) == len(port)
+
+
+@pytest.mark.parametrize("name", sorted(set(jigg.__all__) - set(NOT_YET_PORTED) - JAX_MESH_ONLY))
+def test_every_shared_name_resolves(name):
+    assert getattr(tigg, name) is not None
+
+
+def test_ported_since_the_export_fault():
+    """The three names the port defined but did not export (ROADMAP Queue C)."""
+    from implicitglobalgrid_tpu_torch.ops.overlap import hide_communication
+    from implicitglobalgrid_tpu_torch.parallel.grid import check_initialized
+
+    assert tigg.hide_communication is hide_communication
+    assert tigg.check_initialized is check_initialized
+    assert tigg.NNEIGHBORS_PER_DIM == jigg.NNEIGHBORS_PER_DIM == 2
+    with pytest.raises(RuntimeError, match="before init_global_grid"):
+        tigg.check_initialized()
+
+
+def test_stencil_of_hide_communication_runs_like_jax_usage():
+    """``igg.stencil(igg.hide_communication(step, radius=1))`` equals
+    ``update_halo(step(A))`` bit for bit on a periodic x/y/z block."""
+    tigg.init_global_grid(10, 9, 8, periodx=1, periody=1, periodz=1, quiet=True, device="cpu")
+    rng = np.random.default_rng(0)
+    A = torch.from_numpy(rng.standard_normal((10, 9, 8)))
+
+    def step(A):
+        out = A.clone()
+        out[1:-1, 1:-1, 1:-1] = (A[2:, 1:-1, 1:-1] + A[:-2, 1:-1, 1:-1] + A[1:-1, 2:, 1:-1]
+                                 + A[1:-1, :-2, 1:-1] + A[1:-1, 1:-1, 2:]
+                                 + A[1:-1, 1:-1, :-2]) / 6
+        return out
+
+    fast = tigg.stencil(tigg.hide_communication(step, radius=1))
+    got, want = fast(A), tigg.update_halo(step(A))
+    assert torch.equal(got, want)
+    assert not torch.equal(got, A)
