@@ -83,6 +83,24 @@ and then prints no result line):
    = 2 at phase 6's config, one step; and diffusion 256^3 B = 2 with
    ``pipelined=True`` against the batched serialized run, bit for bit.
 
+9. Gradients (``torch.autograd``) at the main paths' configs, 256^3
+   float32, of ``loss = 1e-6 * sum(out**2)`` over the evolving fields:
+   diffusion (phase 3's config, 16 steps ``fused_k=4``) w.r.t. T and Cp,
+   acoustic (phase 5's, one group of 6 steps ``fused_k=6``) w.r.t. P,
+   porous (phase 6's, npt=12, 1 step ``fused_k=6``) w.r.t. T and Pf.  The
+   fused cadence runs its kernel in the forward (launch counts set to 0
+   before the forward, read after it and again after the backward, which
+   launches nothing) and the ``exchange_every=k`` cadence's groups in the
+   backward (``models._fused``); its gradient is held against the plain
+   cadence's gradient on the card at rtol = atol = 1e-4 (the JAX package's
+   fused-gradient tolerance) and at 1e-4 of the gradient's largest entry,
+   and must be non-zero on the exchange's send planes.  Printed: ms of the
+   forward alone (inference and under autograd), of forward + backward for
+   both cadences, and ``torch.cuda.max_memory_allocated`` of each.  Then
+   diffusion 128^3 B = 2 ``batch=True``: each member's gradient equals its
+   unbatched gradient bit for bit; and diffusion 256^3 forced
+   ``pipelined=True``: its gradient equals the serialized one bit for bit.
+
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 and
@@ -541,6 +559,7 @@ def main() -> None:
 
     phase7(torch, igg, modules, reset_counts, counts, card)
     phase8(torch, igg, modules, reset_counts, counts, card, records)
+    phase9(torch, igg, reset_counts, counts, card)
 
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
@@ -860,6 +879,137 @@ def phase8(torch, igg, modules, reset_counts, counts, card, records) -> None:
           f"{'bit-exact' if ok else 'DIFFERS'}")
     if not ok or c["fused_diffusion_steps"] != 2 * 4:
         fail(f"batched pipelined diffusion: bit-exact {ok}, launches {c} (expected 8)")
+    igg.finalize_global_grid()
+
+
+
+def phase9(torch, igg, reset_counts, counts, card) -> None:
+    """Phase 9: gradients through the fused cadences (see the module
+    docstring)."""
+    from implicitglobalgrid_tpu_torch.models import _batched, acoustic3d, diffusion3d
+    from implicitglobalgrid_tpu_torch.models import porous_convection3d
+
+    f32, n, scale = torch.float32, 256, 1e-6
+    xyz = dict(periodx=1, periody=1, periodz=1)
+    ov = lambda o: dict(overlapx=o, overlapy=o, overlapz=o)  # noqa: E731
+
+    def leaves_of(state, wrt):
+        return [a.clone().requires_grad_(i in wrt) for i, a in enumerate(state)]
+
+    def loss_of(out, loss_idx):
+        return scale * sum((out[i] ** 2).sum() for i in loss_idx)
+
+    def grads(fn, state, wrt, loss_idx):
+        leaves = leaves_of(state, wrt)
+        return torch.autograd.grad(loss_of(fn(*leaves), loss_idx), [leaves[i] for i in wrt])
+
+    def peak_mib(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2**20
+
+    def model_grad(label, model, kernel, setup_kw, nsteps, k, wrt, loss_idx, want_launches,
+                   send_planes):
+        """The fused cadence's gradient against the plain cadence's; returns
+        the fused gradients and the state."""
+        state, params = model.setup(n, n, n, dtype=f32, quiet=True, **setup_kw)
+        fused = model.make_multi_step(params, nsteps, fused_k=k)
+        plain = model.make_multi_step(params, nsteps, exchange_every=k)
+        with torch.no_grad():
+            fused(*state)  # warm-up (allocator)
+        leaves = leaves_of(state, wrt)
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fused(*leaves)
+        torch.cuda.synchronize()
+        fwd_counts = counts()
+        got = torch.autograd.grad(loss_of(out, loss_idx), [leaves[i] for i in wrt])
+        torch.cuda.synchronize()
+        if fwd_counts[kernel] != want_launches:
+            fail(f"{label}: the forward under autograd launched {fwd_counts}, expected "
+                 f"{want_launches} {kernel}")
+        if counts() != fwd_counts:
+            fail(f"{label}: the backward launched a kernel ({fwd_counts} -> {counts()})")
+        del out
+        want = grads(plain, state, wrt, loss_idx)
+        errs = []
+        for i, g, w in zip(wrt, got, want):
+            if not torch.isfinite(g).all():
+                fail(f"{label}: non-finite gradient w.r.t. input {i}")
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"{label} d/d input {i}: {m}")
+            err, top = float((g - w).abs().max()), float(w.abs().max())
+            if not (top > 0 and err <= 1e-4 * top):
+                fail(f"{label} d/d input {i}: max|fused-plain| {err!r} > 1e-4 * max|plain| "
+                     f"{top!r}")
+            a, o, w_ = send_planes
+            for start in (o - w_, g.shape[a] - o):
+                if not bool((g.narrow(a, start, w_) != 0).any()):
+                    fail(f"{label} d/d input {i}: zero on the send planes [{start}, "
+                         f"{start + w_}) of axis {a}")
+            errs.append((err, top))
+        with torch.no_grad():
+            inf_ms = cuda_ms(torch, lambda: fused(*state), reps=3, warmup=1)
+        fwd_ms = cuda_ms(torch, lambda: fused(*leaves), reps=3, warmup=1)
+        both_ms = cuda_ms(torch, lambda: grads(fused, state, wrt, loss_idx), reps=3, warmup=1)
+        plain_ms = cuda_ms(torch, lambda: grads(plain, state, wrt, loss_idx), reps=2, warmup=1)
+        fused_mib = peak_mib(lambda: grads(fused, state, wrt, loss_idx))
+        plain_mib = peak_mib(lambda: grads(plain, state, wrt, loss_idx))
+        print(f"phase 9: {label}: forward launches {fwd_counts} (backward: none); gradient vs "
+              f"the exchange_every={k} cadence's: max|diff| / max|plain| = "
+              + ", ".join(f"{e!r} / {t!r}" for e, t in errs)
+              + " (rtol=atol=1e-4), non-zero on the send planes")
+        print(f"phase 9: {label}: forward {inf_ms!r} ms (inference), {fwd_ms!r} ms (under "
+              f"autograd); forward + backward {both_ms!r} ms (plain cadence {plain_ms!r} ms); "
+              f"max_memory_allocated {fused_mib!r} MiB (plain cadence {plain_mib!r} MiB) {card}")
+        igg.finalize_global_grid()
+        return got
+
+    model_grad("diffusion 256^3 f32 periodic x/y/z overlap 8, 16 steps fused_k=4",
+               diffusion3d, "fused_diffusion_steps", {**xyz, **ov(8)}, 16, 4, (0, 1), (0,), 4,
+               (0, 8, 4))
+    model_grad("acoustic 256^3 f32 periodic z overlap 12, 6 steps fused_k=6", acoustic3d,
+               "fused_leapfrog_steps", dict(periodz=1, **ov(12)), 6, 6, (0,), (0, 1, 2, 3), 1,
+               (2, 12, 6))
+    model_grad("porous 256^3 f32 npt=12 periodic z overlap 14, 1 step fused_k=6",
+               porous_convection3d, "fused_pt_iterations", dict(npt=12, periodz=1, **ov(14)), 1,
+               6, (0, 1), (0, 1, 2, 3, 4), 2, (2, 14, 6))
+
+    # Ensemble members against their unbatched gradients.
+    state, params = _batched.batched_setup(diffusion3d, 128, 128, 128, batch=2, dtype=f32,
+                                           quiet=True, **xyz, **ov(8))
+    reset_counts()
+    got = grads(diffusion3d.make_multi_step(params, 16, fused_k=4, batch=True), state, (0, 1),
+                (0,))
+    c = counts()
+    alone = diffusion3d.make_multi_step(params, 16, fused_k=4)
+    for b in range(2):
+        want = grads(alone, _batched.member_state(state, b), (0, 1), (0,))
+        diff = [float((g[b] - w).abs().max()) for g, w in zip(got, want)]
+        print(f"phase 9: diffusion 128^3 f32 B=2 batch=True, 16 steps fused_k=4: member {b}'s "
+              f"gradient (T, Cp) vs its unbatched gradient: max|diff| {diff} (launches {c})")
+        if any(diff) or c["fused_diffusion_steps"] != 4:
+            fail(f"batched gradient of member {b} differs from its unbatched one ({diff}), or "
+                 f"launches {c} != 4")
+    igg.finalize_global_grid()
+    del state, got, want
+
+    # The forced pipelined schedule against the serialized one.
+    state, params = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, **xyz, **ov(8))
+    reset_counts()
+    piped = grads(diffusion3d.make_multi_step(params, 16, fused_k=4, pipelined=True), state,
+                  (0, 1), (0,))
+    c = counts()
+    serial = grads(diffusion3d.make_multi_step(params, 16, fused_k=4, pipelined=False), state,
+                   (0, 1), (0,))
+    same = all(torch.equal(p, s) for p, s in zip(piped, serial))
+    print(f"phase 9: diffusion 256^3 f32 periodic x/y/z, 16 steps fused_k=4 pipelined=True: "
+          f"launches {c} (ring + mid per group); gradient vs the serialized schedule's "
+          f"{'bit-exact' if same else 'DIFFERS'}")
+    if not same or c["fused_diffusion_steps"] != 2 * 4:
+        fail(f"pipelined gradient: bit-exact {same}, launches {c} (expected 8)")
     igg.finalize_global_grid()
 
 

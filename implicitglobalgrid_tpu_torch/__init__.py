@@ -34,7 +34,15 @@ from .parallel.grid import (
     toc,
 )
 from .parallel.topology import NDIMS, NNEIGHBORS_PER_DIM, PROC_NULL
-from .utils.fields import block_from_numpy, coord_fields, from_block_fn, full, ones, zeros
+from .utils.fields import (
+    block_from_numpy,
+    block_slice,
+    coord_fields,
+    from_block_fn,
+    full,
+    ones,
+    zeros,
+)
 from .utils.tools import nx_g, ny_g, nz_g, x_g, y_g, z_g
 
 __all__ = [
@@ -43,6 +51,7 @@ __all__ = [
     "NNEIGHBORS_PER_DIM",
     "PROC_NULL",
     "block_from_numpy",
+    "block_slice",
     "check_initialized",
     "coord_fields",
     "distributed",

@@ -34,6 +34,24 @@ Tasks:
   ``m`` of the first run's inputs on rank ``r`` alone and saves
   `check_members_finite` as ``finite``.
 
+* ``"grad"``: gradients through the exchange and the model cadences.  Each
+  entry of ``runs`` (inputs ``<prefix><name>``) names a ``model``: one of
+  the kinds above, run as ``make_multi_step(params, nsteps, **step)`` (or
+  ``make_step(params)`` with ``"make_step": true``), or ``"halo"``,
+  ``update_halo`` of copies of the ``fields`` (their block ``shapes``)
+  with ``width`` and ``coalesce``.  The loss is ``scale`` times the sum
+  over ranks of ``sum(out**2)`` over the outputs named in ``loss``
+  (default: all); each rank saves its gradient blocks w.r.t. the fields in
+  ``wrt`` as ``<prefix>d<name>``, its outputs as ``<prefix><name>``, and the
+  ``P2POp``s issued per dimension by the forward and by the backward as
+  ``<prefix>p2p`` (x, y, z forward, then x, y, z backward).  With
+  ``fd_points`` (``[rank, name, index]`` each) it also saves the central
+  differences (step ``eps``) of the all-reduced loss at those points as
+  ``<prefix>fd``.  ``env`` sets environment variables for the run alone
+  (e.g. ``IGG_COALESCE``); a halo run with ``"split": true`` also runs
+  `begin_slab_exchange` + `finish_slab_exchange` on copies, saved as
+  ``<prefix><name>_split`` with its ``P2POp``s as ``<prefix>p2p_split``.
+
 Run one rank by hand with ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json`` and the environment variables above set.
 """
@@ -174,6 +192,8 @@ def _run(task: dict) -> dict:
             return out
         if task["kind"] == "batched":
             return _run_batched(task, inputs, models, dtypes)
+        if task["kind"] == "grad":
+            return _run_grad(task, inputs, models, dtypes)
         raise ValueError(f"unknown task kind {task['kind']!r}")
     finally:
         finalize_global_grid()
@@ -183,19 +203,10 @@ def _run_batched(task: dict, inputs: dict, models: dict, dtypes: dict) -> dict:
     """The ``"batched"`` task (see the module docstring)."""
     import dataclasses
 
-    import torch.distributed as dist
-
     from .models import _batched, porous_convection3d
 
     p2p = [0, 0, 0]
-    issue = dist.batch_isend_irecv
-
-    def counted(ops):
-        for op in ops:
-            p2p[op.tag // 2] += 1  # `ops.halo._issue_permute` tags by dimension
-        return issue(ops)
-
-    dist.batch_isend_irecv = counted
+    restore = _count_p2p(p2p)
     out = {}
     try:
         for run in task["runs"]:
@@ -232,7 +243,122 @@ def _run_batched(task: dict, inputs: dict, models: dict, dtypes: dict) -> dict:
                 state[0][probe["member"], 0, 0, 0] = float("nan")
             out["finite"] = _batched.check_members_finite(state)
     finally:
+        restore()
+    return out
+
+
+def _count_p2p(counts):
+    """Count the ``P2POp``s `torch.distributed.batch_isend_irecv` issues in
+    ``counts`` (by tag: ``ops.halo._issue_permute`` tags a dim-``d``
+    message ``2d`` or ``2d+1`` in the forward and ``ADJOINT_TAG`` more in
+    the backward).  Returns a function that restores the original."""
+    import torch.distributed as dist
+
+    issue = dist.batch_isend_irecv
+
+    def counted(ops):
+        for op in ops:
+            counts[op.tag // 2] += 1
+        return issue(ops)
+
+    dist.batch_isend_irecv = counted
+
+    def restore():
         dist.batch_isend_irecv = issue
+
+    return restore
+
+
+def _run_grad(task: dict, inputs: dict, models: dict, dtypes: dict) -> dict:
+    """The ``"grad"`` task (see the module docstring)."""
+    rank = int(os.environ["RANK"])
+    p2p = [0] * 6
+    restore = _count_p2p(p2p)
+    out = {}
+    try:
+        for run in task["runs"]:
+            saved_env = {k: os.environ.get(k) for k in run.get("env", {})}
+            os.environ.update(run.get("env", {}))
+            try:
+                out.update(_grad_run(run, inputs, models, dtypes, p2p, rank))
+            finally:
+                for k, v in saved_env.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+    finally:
+        restore()
+    return out
+
+
+def _grad_run(run: dict, inputs: dict, models: dict, dtypes: dict, p2p: list, rank: int):
+    """One entry of a ``"grad"`` task's ``runs``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from . import update_halo
+    from .ops.halo import begin_slab_exchange, finish_slab_exchange
+    from .utils.fields import block_from_numpy
+
+    pre = run["prefix"]
+    out = {}
+    if run["model"] == "halo":
+        names = run["fields"]
+        state = [block_from_numpy(inputs[pre + n], tuple(s)) for n, s in zip(names, run["shapes"])]
+        width, coalesce = run.get("width", 1), run.get("coalesce")
+
+        def fn(*fields):
+            got = update_halo(*(f.clone() for f in fields), width=width, coalesce=coalesce)
+            return got if isinstance(got, tuple) else (got,)
+
+        if run.get("split"):
+            p2p[:] = [0] * 6
+            copies = [A.clone() for A in state]
+            finish_slab_exchange(copies, begin_slab_exchange(copies, range(3), width=width,
+                                                             coalesce=coalesce))
+            out.update({f"{pre}{n}_split": A.numpy() for n, A in zip(names, copies)})
+            out[f"{pre}p2p_split"] = np.array(p2p)
+    else:
+        model, names = models[run["model"]]
+        kw = dict(run["params"])
+        kw["dtype"] = dtypes[kw["dtype"]]
+        step = dict(run.get("step", {}))
+        params = dataclasses.replace(model.Params(**kw), hide_comm=step.pop("hide_comm", False))
+        state = model.state_from_numpy(*(inputs[pre + n] for n in names))
+        fn = (model.make_step(params) if run.get("make_step")
+              else model.make_multi_step(params, run["nsteps"], **step))
+    wrt, scale = run.get("wrt", names), run.get("scale", 1.0)
+    loss_names = run.get("loss", names)
+
+    def local_loss(fields):
+        got = fn(*fields)
+        return scale * sum((o**2).sum() for n, o in zip(names, got) if n in loss_names), got
+
+    leaves = [A.clone().requires_grad_(n in wrt) for n, A in zip(names, state)]
+    p2p[:] = [0] * 6
+    loss, got = local_loss(leaves)
+    grads = torch.autograd.grad(loss, [x for n, x in zip(names, leaves) if n in wrt])
+    out[f"{pre}p2p"] = np.array(p2p)
+    out.update({f"{pre}{n}": o.detach().numpy() for n, o in zip(names, got)})
+    out.update({f"{pre}d{n}": g.numpy() for n, g in zip(wrt, grads)})
+    fd = []
+    eps = run.get("eps", 1e-3)
+    for r, name, idx in run.get("fd_points", ()):
+        sides = []
+        for sign in (1, -1):
+            fields = [A.clone() for A in state]
+            if r == rank:
+                fields[names.index(name)][tuple(idx)] += sign * eps
+            with torch.no_grad():
+                total = local_loss(fields)[0].reshape(1)
+            dist.all_reduce(total)
+            sides.append(float(total))
+        fd.append((sides[0] - sides[1]) / (2 * eps))
+    if fd:
+        out[f"{pre}fd"] = np.array(fd)
     return out
 
 

@@ -73,10 +73,12 @@ def check_batched(fields) -> int:
     return sizes.pop()
 
 
-def update_halo(*fields, width: int = 1):
+def update_halo(*fields, width: int = 1, coalesce: bool | None = None):
     """`ops.halo.update_halo` for batched fields: every member's halo planes
-    in place, each dimension one send/receive pair per side and field for all
-    B members.  Returns the field for one argument, a tuple for several."""
+    in place, each dimension one send/receive pair per side and field (or,
+    coalesced, per dtype word width) for all B members.  Returns the field
+    for one argument, a tuple for several; differentiable like the
+    unbatched exchange."""
     _grid.check_initialized()
     gg = _grid.global_grid()
     if not fields:
@@ -85,8 +87,8 @@ def update_halo(*fields, width: int = 1):
         raise ValueError(f"width must be >= 1 (got {width})")
     check_batched(fields)
     _halo._validate_fields(fields, gg, [member_shape(A) for A in fields])
-    _halo.exchange(fields, width=width, lead=1)
-    return fields[0] if len(fields) == 1 else tuple(fields)
+    out = _halo.exchange(fields, width=width, lead=1, coalesce=coalesce)
+    return out[0] if len(out) == 1 else out
 
 
 def stack_fields(*fields):

@@ -29,6 +29,14 @@ Both schedules run an ensemble (``batch=True``: `models._batched`) as they
 run one block: one launch per pass for all B members, one exchange per
 dimension carrying all B.  The plan (split or not, tile) is taken from the
 member's block and the grid, never from B.
+
+Autodiff: the kernels are forward-only, as in JAX.  Under autograd each
+group runs through `fused_with_plain_grad`: the forward is the group as it
+runs without autograd (kernel launches, streams, early exchange), the
+backward that of the model's own plain group (``ki`` plain updates, then
+the differentiable exchange) recomputed from the group's inputs.  Per
+group, not per cadence as in JAX, so the backward holds one group's
+intermediates at a time.
 """
 
 from __future__ import annotations
@@ -41,11 +49,13 @@ from ..ops.halo import (
     _partner_self,
     begin_slab_exchange,
     dim_has_halo_activity,
+    exchange as halo_exchange,
     exchange_dims,
     finish_slab_exchange,
+    needs_grad,
     update_halo,
 )
-from ..ops.overlap import tile_split_error, tile_split_sel
+from ..ops.overlap import fused_with_plain_grad, tile_split_error, tile_split_sel
 from ..parallel.grid import global_grid
 from . import _batched
 
@@ -80,7 +90,8 @@ def _mid_stream(device):
 
 
 def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: int,
-                                 z_exchange: bool = False, lead: int = 0):
+                                 z_exchange: bool = False, lead: int = 0, coalesce=None,
+                                 wrap=None):
     """Boundary-first pipelined sibling of `run_group_schedule`.
 
     ``carry`` is a tuple of fields; per group ``ki`` of ``chunks``:
@@ -102,7 +113,9 @@ def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: in
     exchange moves exactly the slabs the serialized exchange would (corner
     strips patched in), so every group is bit-identical to the serialized
     schedule.  On CPU tensors the steps run in order.  ``lead``: the
-    fields' leading ensemble axes (1 for a batch).
+    fields' leading ensemble axes (1 for a batch); ``coalesce`` as in
+    `ops.halo.update_halo`; ``wrap(group) -> group``: what each group runs
+    through (the autodiff wrapper of `fused_groups`).
     """
     def group(ki, c):
         split = c[0].is_cuda
@@ -120,10 +133,10 @@ def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: in
             with torch.cuda.stream(mid):
                 out = interior(ki, c, b_out)
             # The compute stream holds only the ring pass since the fork.
-            pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead)
+            pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead, coalesce=coalesce)
             main.wait_stream(mid)
         else:
-            pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead)
+            pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead, coalesce=coalesce)
             out = interior(ki, c, b_out)
         out = finish_slab_exchange(out, pend)
         if z_exchange:
@@ -131,7 +144,7 @@ def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: in
                 exchange_dims(A, (2,), width=width, lead=lead)
         return out
 
-    return run_group_schedule(chunks, group, tuple(carry))
+    return run_group_schedule(chunks, wrap(group) if wrap else group, tuple(carry))
 
 
 def group_plan(kernel_mod, model: str, shape, dtype, device, *, k: int, width: int, pipelined,
@@ -157,17 +170,23 @@ def group_plan(kernel_mod, model: str, shape, dtype, device, *, k: int, width: i
 
 
 def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipelined, fused_tile,
-                 stagger: int, gg, batch: bool = False):
+                 stagger: int, gg, batch: bool = False, coalesce=None):
     """A fused cadence's group sequence, serialized or pipelined: the one
     dispatch of the three models.
 
-    Returns ``run(kernel, carry) -> carry``.  ``carry``: a tuple of fields,
-    the first cell-shaped (batched ``(B, *block)`` with ``batch``);
-    ``kernel(ki, carry, tile, **subset) -> carry`` launches one group of
-    ``ki`` steps (``subset``: ``tile_sel`` and ``carry_in``); every group is
-    followed by a width-``width`` exchange of all fields.  The schedule and
-    its tile (`group_plan`) are resolved once per block shape, dtype and
-    device, at the first call that brings them.
+    Returns ``run(kernel, plain, carry, aux=()) -> carry``.  ``carry``: a
+    tuple of fields, the first cell-shaped (batched ``(B, *block)`` with
+    ``batch``); ``aux``: read-only fields the groups also take (diffusion's
+    Cp, porous T).  ``kernel(ki, carry, aux, tile, **subset) -> carry``
+    launches one group of ``ki`` steps (``subset``: ``tile_sel`` and
+    ``carry_in``); every group is followed by a width-``width`` exchange of
+    all fields (``coalesce`` as in `ops.halo.update_halo`).  ``plain(ki,
+    carry, aux) -> carry`` runs the same ``ki`` steps with the model's plain
+    updates: under autograd (`ops.halo.needs_grad`) each group runs through
+    `fused_with_plain_grad`, its backward that of ``plain`` followed by the
+    differentiable exchange, ``carry`` and ``aux`` its explicit inputs.  The schedule and its tile (`group_plan`) are
+    resolved once per block shape, dtype and device, at the first call that
+    brings them.
     """
     active = any(dim_has_halo_activity(gg, d) for d in range(3))
     z_exchange = dim_has_halo_activity(gg, 2)
@@ -175,7 +194,7 @@ def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipeline
     exchange = _batched.update_halo if batch else update_halo
     plans: dict = {}
 
-    def run(kernel, carry):
+    def run(kernel, plain, carry, aux=()):
         c0 = carry[0]
         key = (tuple(c0.shape[lead:]), c0.dtype, c0.device)
         if key not in plans:
@@ -183,24 +202,41 @@ def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipeline
                                     pipelined=pipelined, fused_tile=fused_tile, stagger=stagger,
                                     gg=gg)
         split, sel, tile = plans[key]
+        n = len(carry)
+
+        def plain_group(ki, *a):
+            c = plain(ki, a[:n], a[n:])
+            return halo_exchange(c, width=width, lead=lead, coalesce=coalesce) if active else c
+
+        def wrap(group):
+            def differentiable(ki, c):
+                if not needs_grad((*c, *aux)):
+                    return group(ki, c)
+                return fused_with_plain_grad(lambda *a: group(ki, a[:n]),
+                                             lambda *a: plain_group(ki, *a))(*c, *aux)
+
+            return differentiable
+
         if split:
             return run_pipelined_group_schedule(
                 chunks,
-                lambda ki, c: kernel(ki, c, tile, tile_sel="ring" + sel),
-                lambda ki, c, b_out: kernel(ki, c, tile, tile_sel="mid" + sel, carry_in=b_out),
-                carry, width=width, z_exchange=z_exchange, lead=lead,
+                lambda ki, c: kernel(ki, c, aux, tile, tile_sel="ring" + sel),
+                lambda ki, c, b_out: kernel(ki, c, aux, tile, tile_sel="mid" + sel,
+                                            carry_in=b_out),
+                carry, width=width, z_exchange=z_exchange, lead=lead, coalesce=coalesce,
+                wrap=wrap,
             )
 
         def group(ki, c):
-            c = kernel(ki, c, tile)
+            c = kernel(ki, c, aux, tile)
             # One slab exchange licenses the next k steps: the kernel's k-deep
             # stale rind is exactly what the width-k exchange refreshes, from
             # planes k steps still kept exact.
             if active:
-                exchange(*c, width=width)
+                exchange(*c, width=width, coalesce=coalesce)
             return c
 
-        return run_group_schedule(chunks, group, tuple(carry))
+        return run_group_schedule(chunks, wrap(group), tuple(carry))
 
     return run
 

@@ -168,21 +168,27 @@ def make_step(params: Params, *, batch: bool = False):
     update when ``params.hide_comm``), then P from the fresh velocities.
     ``batch=True``: the ensemble step over batched fields (`models._batched`),
     member for member bit-identical to the unbatched step."""
+    return _batched.checked(_leapfrog_step(params, batch), batch)
+
+
+def _leapfrog_step(params: Params, batch: bool, coalesce=None):
+    """`make_step`'s step, its velocity exchange coalesced as ``coalesce``
+    says (`ops.halo.update_halo`)."""
     v_update = _velocity_update(params)
     p_update = _pressure_update(params)
     if params.hide_comm:
-        v_exchanged = overlapped(v_update, 1, None, lead=int(batch))
+        v_exchanged = overlapped(v_update, 1, None, lead=int(batch), coalesce=coalesce)
     else:
         halo = _batched.update_halo if batch else update_halo
 
         def v_exchanged(*s):
-            return halo(*v_update(*s))
+            return halo(*v_update(*s), coalesce=coalesce)
 
     def step(P, Vx, Vy, Vz):
         Vx, Vy, Vz = v_exchanged(P, Vx, Vy, Vz)
         return p_update(P, Vx, Vy, Vz), Vx, Vy, Vz
 
-    return _batched.checked(step, batch)
+    return step
 
 
 def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
@@ -228,13 +234,18 @@ def make_multi_step(
 
     ``batch=True``: every cadence over batched fields (`models._batched`),
     one kernel launch per group and one exchange per dimension for all B
-    members.  ``coalesce=True`` and ``autotune`` come with later slices and
-    raise `NotImplementedError`.
+    members.  ``coalesce`` (None: ``IGG_COALESCE``, default on): every
+    multi-field exchange of the cadence sends one message per side and
+    dtype word width instead of one per field (`ops.halo.update_halo`),
+    bit-identical either way.  ``autotune`` comes with a later slice and
+    raises `NotImplementedError`.
+
+    Differentiable on every cadence (`torch.autograd`); ``fused_k`` runs
+    the kernel in the forward and the ``exchange_every=k`` cadence's groups
+    in the backward (`models._fused`).
     """
     if autotune:
         _common.later("autotune", "15")
-    if coalesce:
-        _common.later("coalesce=True", "2")
     v_update = _velocity_update(params)
     p_update = _pressure_update(params)
     halo = _batched.update_halo if batch else update_halo
@@ -272,14 +283,19 @@ def make_multi_step(
         run_groups = _fused.fused_groups(
             fused_leapfrog, "acoustic", [fused_k] * (nsteps // fused_k), k=fused_k,
             width=fused_k, pipelined=pipelined, fused_tile=fused_tile, stagger=1, gg=gg,
-            batch=batch,
+            batch=batch, coalesce=coalesce,
         )
+
+        def plain_steps(ki, s, aux):
+            for _ in range(ki):
+                s = leapfrog(s)
+            return s
 
         def fused_multi_step(*s):
             return run_groups(
-                lambda ki, c, tile, **subset: fused_leapfrog_steps(*c, ki, *co, tile=tile,
-                                                                   **subset),
-                s,
+                lambda ki, c, aux, tile, **subset: fused_leapfrog_steps(*c, ki, *co, tile=tile,
+                                                                        **subset),
+                plain_steps, s,
             )
 
         return _batched.checked(fused_multi_step, batch)
@@ -304,7 +320,7 @@ def make_multi_step(
             for _ in range(nsteps // w):
                 for _ in range(w):
                     s = leapfrog(s)
-                s = halo(*s, width=w)
+                s = halo(*s, width=w, coalesce=coalesce)
             return s
 
         return _batched.checked(slab_multi_step, batch)
@@ -314,14 +330,14 @@ def make_multi_step(
             "pipelined applies to the group cadences (fused_k or "
             "exchange_every > 1); the per-step path has no group schedule."
         )
-    step = make_step(params, batch=batch)
+    step = _leapfrog_step(params, batch, coalesce)
 
     def multi_step(*s):
         for _ in range(nsteps):
             s = step(*s)
         return s
 
-    return multi_step
+    return _batched.checked(multi_step, batch)
 
 
 def run(nt: int, nx: int = 64, ny: int = 64, nz: int = 64, *,

@@ -232,6 +232,10 @@ def make_multi_step(
     dimension for all B members, member for member bit-identical to the
     unbatched cadence.  ``autotune`` comes with a later slice and raises
     `NotImplementedError`.
+
+    Differentiable on every cadence (`torch.autograd`, w.r.t. T and Cp);
+    ``fused_k`` runs the kernel in the forward and the ``exchange_every=k``
+    cadence's groups in the backward (`models._fused`).
     """
     if autotune:
         _common.later("autotune", "15")
@@ -273,11 +277,17 @@ def make_multi_step(
             batch=batch,
         )
 
+        def plain_steps(ki, c, aux):
+            T = c[0]
+            for _ in range(ki):
+                T = update(T, aux[0])
+            return (T,)
+
         def fused_multi_step(T, Cp):
             (T,) = run_groups(
-                lambda ki, c, tile, **subset: (
-                    fused_diffusion_steps(c[0], Cp, ki, *c3, tile=tile, **subset),),
-                (T,),
+                lambda ki, c, aux, tile, **subset: (
+                    fused_diffusion_steps(c[0], aux[0], ki, *c3, tile=tile, **subset),),
+                plain_steps, (T,), (Cp,),
             )
             return T, Cp
 

@@ -195,22 +195,22 @@ def _divergence(qDx, qDy, qDz, params: Params):
     )
 
 
-def _pt_iteration(params: Params, batch: bool = False):
+def _pt_iteration(params: Params, batch: bool = False, coalesce=None):
     """One PT relaxation: flux update (+buoyancy) on interior faces,
     pressure update at all cells, halo exchange of ``Pf`` alone (the fluxes'
     interior faces are recomputed from post-exchange ``Pf`` each
     iteration).  With ``params.hide_comm`` the ``Pf`` exchange overlaps the
     interior pressure update (`hide_communication`).  ``batch``: of a
-    batch."""
+    batch; ``coalesce`` as in `ops.halo.update_halo`."""
     flux_update = _flux_update(params)
     p_update = _pressure_update(params)
     if params.hide_comm:
-        p_exchanged = overlapped(p_update, 1, None, lead=int(batch))
+        p_exchanged = overlapped(p_update, 1, None, lead=int(batch), coalesce=coalesce)
     else:
         halo = _batched.update_halo if batch else update_halo
 
         def p_exchanged(*s):
-            return halo(p_update(*s))
+            return halo(p_update(*s), coalesce=coalesce)
 
     def iteration(T, Pf, qDx, qDy, qDz):
         qDx, qDy, qDz = flux_update(T, Pf, qDx, qDy, qDz)
@@ -254,18 +254,19 @@ def _temperature_update(params: Params):
     return update
 
 
-def _build_block_step(params: Params, batch: bool = False):
+def _build_block_step(params: Params, batch: bool = False, coalesce=None):
     """One whole time step at the per-iteration exchange cadence: ``npt``
     PT iterations (each exchanging ``Pf``), the once-per-step 3-field flux
-    exchange, then the T update and its exchange."""
-    pt_iter = _pt_iteration(params, batch)
+    exchange (coalesced as ``coalesce`` says), then the T update and its
+    exchange."""
+    pt_iter = _pt_iteration(params, batch, coalesce)
     t_update = _temperature_update(params)
     halo = _batched.update_halo if batch else update_halo
 
     def block_step(T, Pf, qDx, qDy, qDz):
         for _ in range(params.npt):
             Pf, qDx, qDy, qDz = pt_iter(T, Pf, qDx, qDy, qDz)
-        qDx, qDy, qDz = halo(qDx, qDy, qDz)
+        qDx, qDy, qDz = halo(qDx, qDy, qDz, coalesce=coalesce)
         T = halo(t_update(T, qDx, qDy, qDz))
         return T, Pf, qDx, qDy, qDz
 
@@ -356,13 +357,19 @@ def make_multi_step(
 
     ``batch=True``: every cadence over batched fields (`models._batched`),
     one kernel launch per chunk and one exchange per dimension for all B
-    members.  ``coalesce=True`` and ``autotune`` come with later slices and
-    raise `NotImplementedError`.
+    members.  ``coalesce`` (None: ``IGG_COALESCE``, default on): every
+    multi-field exchange of the cadence sends one message per side and
+    dtype word width instead of one per field (`ops.halo.update_halo`),
+    bit-identical either way.  ``autotune`` comes with a later slice and
+    raises `NotImplementedError`.
+
+    Differentiable on every cadence (`torch.autograd`); ``fused_k`` runs
+    the kernel in the forward and the plain PT chunks in the backward
+    (`models._fused`), with T an explicit input of every chunk, so dL/dT
+    takes the buoyancy term's path through the PT iterations.
     """
     if autotune:
         _common.later("autotune", "15")
-    if coalesce:
-        _common.later("coalesce=True", "2")
     bx, by = fused_tile if fused_tile is not None else (None, None)
     if (bx is None) != (by is None):
         raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")
@@ -388,14 +395,14 @@ def make_multi_step(
             for _ in range(lead):
                 s = pt_iterate(T, s)
                 if active:
-                    s = halo(*s)
+                    s = halo(*s, coalesce=coalesce)
             if run_chunks is not None:
                 s = run_chunks(T, s)
             for ki in chunks if run_chunks is None else ():
                 for _ in range(ki):
                     s = pt_iterate(T, s)
                 if active:
-                    s = halo(*s, width=w)
+                    s = halo(*s, width=w, coalesce=coalesce)
             T = t_update(T, *s[1:])
             if active:
                 T = halo(T)
@@ -435,14 +442,22 @@ def make_multi_step(
         # keeps it legal: a smaller window).
         run_groups = _fused.fused_groups(
             fused_pt, "porous", chunks, k=w, width=w, pipelined=pipelined,
-            fused_tile=fused_tile, stagger=1, gg=gg, batch=batch,
+            fused_tile=fused_tile, stagger=1, gg=gg, batch=batch, coalesce=coalesce,
         )
 
+        def plain_chunk(ki, s, aux):
+            for _ in range(ki):
+                s = pt_iterate(aux[0], s)
+            return s
+
         def run_chunks(T, s):
+            # T is the chunks' explicit input (aux), not a closure: the
+            # kernel reads it through the buoyancy term, and autograd must
+            # see it to carry dL/dT through the PT iterations.
             return run_groups(
-                lambda ki, c, tile, **subset: fused_pt_iterations(T, *c, ki, *co, tile=tile,
-                                                                  **subset),
-                s,
+                lambda ki, c, aux, tile, **subset: fused_pt_iterations(
+                    aux[0], *c, ki, *co, tile=tile, **subset),
+                plain_chunk, s, (T,),
             )
 
         block_step = cadence_block_step(w, lead, chunks, run_chunks, active)
@@ -466,7 +481,7 @@ def make_multi_step(
                 "exchange_every > 1); the per-iteration path has no group "
                 "schedule."
             )
-        block_step = _build_block_step(params, batch)
+        block_step = _build_block_step(params, batch, coalesce)
 
     if nsteps > 64:
         raise ValueError(

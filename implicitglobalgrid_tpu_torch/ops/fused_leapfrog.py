@@ -164,10 +164,13 @@ def validate(cells, faces, k: int, what: str, *, tile=None, tile_sel: str = "all
              carry_in=None):
     """Check the cell fields (one shape) and the x/y/z face fields of a
     staggered kernel call and its launch request; raise `ValueError` on
-    what the kernel does not take.  Every field may carry one leading batch
-    axis, the same for all.  Returns ``(tile, carry)``: the launch tile
-    (None: the default one) and ``carry_in`` as a tuple (or None)."""
+    what the kernel does not take, and on a call autograd would have to
+    record (`ops.overlap.check_forward_only`).  Every field may carry one
+    leading batch axis, the same for all.  Returns ``(tile, carry)``: the
+    launch tile (None: the default one) and ``carry_in`` as a tuple (or
+    None)."""
     fields = (*cells, *faces)
+    _overlap.check_forward_only(what, fields)
     if len({a.dtype for a in fields}) != 1:
         raise ValueError(f"{what}: the fields must share a dtype (got {[a.dtype for a in fields]})")
     if len({a.device for a in fields}) != 1:

@@ -269,10 +269,12 @@ def fused_diffusion_steps(T, Cp, k: int, cx: float, cy: float, cz: float, *, til
     into fewer segments, `launch_tile`).  ``tile_sel``: a subset of the (x
     segment, y tile) pairs (`ops.overlap.TILE_SELS`), in every member; a
     ``mid*`` launch writes into ``carry_in``, the matching ``ring*``
-    launch's output, and returns it.
+    launch's output, and returns it.  Forward-only: under grad mode with an
+    input that requires grad it raises (`ops.overlap.check_forward_only`).
     """
     global launches
     _validate(T, Cp, k)
+    _overlap.check_forward_only("fused_diffusion_steps", (T, Cp))
     block, nb = tuple(T.shape[-3:]), T.shape[0] if T.dim() == 4 else 1
     if tile is not None:
         tile = check_tile(block, k, tile, T.element_size())

@@ -33,6 +33,24 @@ pipelined group schedule of `models._fused`): ``begin`` starts it on a
 high-priority communication stream (the reference's max-priority halo
 streams) from the planes a field already holds, ``finish`` makes the
 compute stream wait for it and writes the received planes.
+
+Coalescing (JAX ``_coalesced_permute``): when two or more fields permute a
+dimension, their send slabs pack into one buffer per dtype word width (a
+byte-exact reinterpretation as same-width integers, `_flat_words`), so a
+dimension issues ONE send/receive pair per side and width group instead of
+one per field.  Bit-identical to the per-field transport; ``coalesce=False``
+or ``IGG_COALESCE=0`` restores it.
+
+Autodiff: with grad mode on and a field that requires grad, the exchange
+runs as `_Exchange`, a `torch.autograd.Function` whose backward is the
+exchange's adjoint across ranks: each received halo's cotangent goes back
+to the rank that sent it and is added into its send planes (JAX gets the
+same from ``ppermute``'s transpose and ``_packed_transport``'s custom VJP).
+Every rank must run the backward, with the same exchanges in the same
+order as the forward (NCCL matches messages by order).  The exchange stays
+in place, so a field that is a leaf requiring grad cannot be exchanged
+(torch refuses in-place writes to such a leaf): exchange
+``update_halo(A.clone())``, or the output of an update.
 """
 
 from __future__ import annotations
@@ -44,6 +62,7 @@ import torch.distributed as dist
 
 from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS, PROC_NULL
+from ..utils.config import coalesce_env
 
 
 def local_shape(A, gg=None) -> tuple[int, ...]:
@@ -209,7 +228,15 @@ def _slab_parts(A, d: int, gg, width: int = 1, received=None, lead: int = 0):
     return ("permute", slab(o - width), slab(n - o))
 
 
-def _issue_permute(d: int, gg, send_lo, send_hi):
+
+#: Tag offset of the adjoint's messages: the forward tags a dim-``d`` message
+#: ``2d`` (to the lower partner) or ``2d+1`` (to the upper one), the backward
+#: ``ADJOINT_TAG + 2d`` or ``ADJOINT_TAG + 2d + 1``, so under gloo a rank
+#: that starts its backward never matches a neighbour's forward message.
+ADJOINT_TAG = 2 * NDIMS
+
+
+def _issue_permute(d: int, gg, send_lo, send_hi, tag0: int = 0):
     """Start the exchange of two slabs with the distance-``disp`` partners
     along ``d``; returns ``(requests, recv_lo, recv_hi)``: the receive
     buffers for planes ``[0, w)`` and ``[n-w, n)`` (None on a side with no
@@ -221,10 +248,12 @@ def _issue_permute(d: int, gg, send_lo, send_hi):
     == 2``, periodic): every rank issues its sends as (to-lower, to-upper)
     and its receives as (from-upper, from-lower); what I send to my lower
     partner is what that partner receives from ITS upper partner.  Under
-    NCCL, the requests' ``wait()`` makes the current stream wait.
+    NCCL, the requests' ``wait()`` makes the current stream wait.  ``tag0``:
+    0 for the exchange, `ADJOINT_TAG` for its adjoint, which sends the same
+    way (a cotangent goes back to the lower partner as ``send_lo``).
     """
     lower, upper = int(gg.neighbors[0, d]), int(gg.neighbors[1, d])
-    tag_to_lower, tag_to_upper = 2 * d, 2 * d + 1
+    tag_to_lower, tag_to_upper = tag0 + 2 * d, tag0 + 2 * d + 1
     ops = []
     recv_lo = recv_hi = None
     if lower != PROC_NULL:
@@ -240,6 +269,89 @@ def _issue_permute(d: int, gg, send_lo, send_hi):
     return (dist.batch_isend_irecv(ops) if ops else []), recv_lo, recv_hi
 
 
+#: Integer word type of each transport word width in bytes.
+_WORDS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _as_words(x):
+    """``x`` as the elements the transport moves: bool as uint8, complex as
+    its real and imaginary float words (JAX ``_flat_words``)."""
+    if x.dtype == torch.bool:
+        return x.view(torch.uint8)
+    return torch.view_as_real(x) if x.is_complex() else x
+
+
+def _word_width(dtype) -> int:
+    """Transport word size in bytes (complex splits into two float words)."""
+    return dtype.itemsize // 2 if dtype.is_complex else dtype.itemsize
+
+
+def _flat_words(x):
+    """``x`` flattened to its same-width integer words, byte-exactly."""
+    w = _as_words(x)
+    return w.contiguous().reshape(-1).view(_WORDS[w.element_size()])
+
+
+def _from_words(buf, shape, dtype):
+    """Invert `_flat_words`: words back to a tensor of ``shape``/``dtype``."""
+    if dtype.is_complex:
+        return torch.view_as_complex(buf.view(dtype.to_real()).reshape(*shape, 2))
+    return buf.view(dtype).reshape(shape)
+
+
+def resolve_coalesce(coalesce):
+    """``coalesce`` itself, or for None the ``IGG_COALESCE`` default (unset:
+    on; JAX ``_default_coalesce``), read per call."""
+    if coalesce is not None:
+        return bool(coalesce)
+    env = coalesce_env()
+    return True if env is None else env
+
+
+def _permute_fields(d: int, gg, sends, coalesce, tag0: int = 0):
+    """Per-field ``(recv_lo, recv_hi)`` of a dim-``d`` permute of the slab
+    pairs ``sends`` (one ``(send_lo, send_hi)`` per field).
+
+    With two or more fields and ``coalesce`` (`resolve_coalesce`), the slabs pack into one buffer
+    per word width (`_flat_words`, in field order) and each width group
+    moves in ONE `_issue_permute`; a group with one member is sent as it is.
+    Every rank forms the same groups in the same order, and the groups go
+    one after another, so messages pair up under NCCL's order matching and
+    gloo's tags alike.  The received words are the sent words, so the result
+    equals the per-field transport bit for bit.
+    """
+    if not sends:
+        return []
+    pack = len(sends) > 1 and resolve_coalesce(coalesce)
+    groups: dict = {}
+    for j, (lo, _) in enumerate(sends):
+        key = _word_width(lo.dtype) if pack else j
+        groups.setdefault(key, []).append(j)
+    out: list = [None] * len(sends)
+    for idxs in groups.values():
+        if len(idxs) == 1:
+            (j,) = idxs
+            reqs, lo, hi = _issue_permute(d, gg, *sends[j], tag0)
+            for req in reqs:
+                req.wait()
+            out[j] = (lo, hi)
+            continue
+        bufs = [torch.cat([_flat_words(sends[j][side]) for j in idxs]) for side in (0, 1)]
+        reqs, recv_lo, recv_hi = _issue_permute(d, gg, *bufs, tag0)
+        for req in reqs:
+            req.wait()
+        off = 0
+        for j in idxs:
+            like = sends[j][0]
+            size = _as_words(like).numel()
+            out[j] = tuple(
+                None if r is None else _from_words(r[off:off + size], like.shape, like.dtype)
+                for r in (recv_lo, recv_hi)
+            )
+            off += size
+    return out
+
+
 def _write_planes(A, d: int, width: int, lo, hi, lead: int = 0) -> None:
     """Write received ``lo``/``hi`` slabs into ``A``'s planes ``[0, w)`` and
     ``[n-w, n)`` along grid dimension ``d`` (tensor axis ``d + lead``; a
@@ -251,38 +363,119 @@ def _write_planes(A, d: int, width: int, lo, hi, lead: int = 0) -> None:
         A.narrow(a, 0, width).copy_(lo)
 
 
-def _exchange_dim(A, d: int, gg, width: int = 1, lead: int = 0) -> None:
-    p = _slab_parts(A, d, gg, width, lead=lead)
-    if p is None:
-        return
-    if p[0] == "self":
-        # Source and target slabs are disjoint (ol >= 2w), so both copies
-        # read pre-exchange values.
-        _write_planes(A, d, width, p[1], p[2], lead)
-        return
-    reqs, lo, hi = _issue_permute(d, gg, p[1], p[2])
-    for req in reqs:
-        req.wait()
-    _write_planes(A, d, width, lo, hi, lead)
+def _exchange_dim(fields, d: int, gg, width: int, lead: int, coalesce) -> None:
+    """The dim-``d`` exchange of ``fields``, in place."""
+    permuting, sends = [], []
+    for A in fields:
+        p = _slab_parts(A, d, gg, width, lead=lead)
+        if p is None:
+            continue
+        if p[0] == "self":
+            # Source and target slabs are disjoint (ol >= 2w), so both copies
+            # read pre-exchange values.
+            _write_planes(A, d, width, p[1], p[2], lead)
+        else:
+            permuting.append(A)
+            sends.append(p[1:])
+    for A, (lo, hi) in zip(permuting, _permute_fields(d, gg, sends, coalesce)):
+        _write_planes(A, d, width, lo, hi, lead)
+
+
+def _adjoint_dim(grads, d: int, gg, width: int, lead: int, coalesce) -> None:
+    """The adjoint of `_exchange_dim` on the cotangents ``grads``, in place.
+
+    A halo plane's cotangent moves back to where its value came from and is
+    zeroed where a partner (or the block itself) wrote it; a PROC_NULL side
+    keeps it, since its planes kept their values.  The sender adds what it
+    receives into its send planes ``[o-w, o)`` (from its lower partner's
+    top planes) and ``[n-o, n-o+w)`` (from its upper partner's bottom
+    planes).  Packed like the forward, one message per side and width group.
+    """
+    a = d + lead
+    permuting, sends = [], []
+    for G in grads:
+        p = _slab_parts(G, d, gg, width, lead=lead)
+        if p is None:
+            continue
+        n, o = G.shape[a], ol(d, shape=G.shape[lead:], gg=gg)
+        if p[0] == "self":
+            glo, ghi = (G.narrow(a, at, width).clone() for at in (0, n - width))
+            _zero_planes(G, a, width, True, True)
+            G.narrow(a, n - o, width).add_(glo)
+            G.narrow(a, o - width, width).add_(ghi)
+        else:
+            permuting.append((G, n, o))
+            sends.append((G.narrow(a, 0, width), G.narrow(a, n - width, width)))
+    lower, upper = (int(gg.neighbors[s, d]) != PROC_NULL for s in (0, 1))
+    recvs = _permute_fields(d, gg, sends, coalesce, ADJOINT_TAG)
+    for (G, n, o), (from_lower, from_upper) in zip(permuting, recvs):
+        _zero_planes(G, a, width, lower, upper)
+        if from_lower is not None:
+            G.narrow(a, o - width, width).add_(from_lower)
+        if from_upper is not None:
+            G.narrow(a, n - o, width).add_(from_upper)
+
+
+def _exchange_fields(fields, width: int, lead: int, coalesce) -> None:
+    """Every dimension's exchange of ``fields`` in sequence, in place."""
+    gg = _grid.global_grid()
+    for d in range(NDIMS):
+        _exchange_dim(fields, d, gg, width, lead, coalesce)
+
+
+def _zero_planes(G, a: int, width: int, lo: bool, hi: bool) -> None:
+    if lo:
+        G.narrow(a, 0, width).zero_()
+    if hi:
+        G.narrow(a, G.shape[a] - width, width).zero_()
+
+
+def needs_grad(tensors) -> bool:
+    """Grad mode is on and some tensor requires grad: the exchange (and the
+    fused cadences) must record for autograd."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _Exchange(torch.autograd.Function):
+    """The exchange of ``fields`` in place, with its adjoint as backward."""
+
+    @staticmethod
+    def forward(ctx, width, lead, coalesce, *fields):
+        _exchange_fields(fields, width, lead, coalesce)
+        ctx.mark_dirty(*fields)
+        ctx.args = (width, lead, coalesce)
+        return fields
+
+    @staticmethod
+    def backward(ctx, *grads):
+        width, lead, coalesce = ctx.args
+        gg = _grid.global_grid()
+        grads = [g.clone(memory_format=torch.contiguous_format) for g in grads]
+        for d in reversed(range(NDIMS)):
+            _adjoint_dim(grads, d, gg, width, lead, coalesce)
+        return (None, None, None, *grads)
 
 
 def exchange_dims(A, dims, *, width: int = 1, lead: int = 0):
     """Exchange one field along the given dimensions only, in place (the
-    pipelined schedule's z exchange after the x/y halves)."""
+    pipelined schedule's z exchange after the x/y halves; no autograd)."""
     gg = _grid.global_grid()
     for d in dims:
-        _exchange_dim(A, d, gg, width, lead)
+        _exchange_dim((A,), d, gg, width, lead, False)
     return A
 
 
-def exchange(fields, *, width: int = 1, lead: int = 0) -> None:
+def exchange(fields, *, width: int = 1, lead: int = 0, coalesce=None) -> tuple:
     """The exchange of validated ``fields`` in place: dimensions in
     sequence, every field per dimension (`update_halo`'s body; the
-    ensemble's through `models._batched.update_halo`, ``lead = 1``)."""
-    gg = _grid.global_grid()
-    for d in range(NDIMS):
-        for A in fields:
-            _exchange_dim(A, d, gg, width, lead)
+    ensemble's through `models._batched.update_halo`, ``lead = 1``).
+    Returns the fields; under autograd (`needs_grad`) they carry the
+    exchange's adjoint (`_Exchange`)."""
+    if needs_grad(fields):
+        # Resolved once, so that the backward packs as the forward did.
+        return _Exchange.apply(width, lead, resolve_coalesce(coalesce), *fields)
+    _exchange_fields(fields, width, lead, coalesce)
+    return tuple(fields)
 
 
 #: High-priority communication stream per CUDA device (`_comm_stream`).
@@ -295,7 +488,7 @@ def _comm_stream(device):
     return _comm_streams[device]
 
 
-def begin_slab_exchange(fields, dims, *, width: int, lead: int = 0):
+def begin_slab_exchange(fields, dims, *, width: int, lead: int = 0, coalesce=None):
     """Start the slab exchange of ``fields`` along ``dims`` WITHOUT writing
     the received planes back; returns one pend list per field for
     `finish_slab_exchange`.
@@ -310,7 +503,9 @@ def begin_slab_exchange(fields, dims, *, width: int, lead: int = 0):
     communication stream after it waited for the work enqueued so far on
     the current stream, so every dim-``d`` receive is ordered before the
     dim-``d+1`` patch on that stream, never on the host; the tensors stay
-    on the device.  ``lead``: the fields' leading ensemble axes.
+    on the device.  ``lead``: the fields' leading ensemble axes;
+    ``coalesce`` as in `update_halo`.  No autograd: the schedules that call
+    it carry their own (`ops.overlap.fused_with_plain_grad`).
     """
     gg = _grid.global_grid()
     pends = [[] for _ in fields]
@@ -324,18 +519,21 @@ def begin_slab_exchange(fields, dims, *, width: int, lead: int = 0):
             A.record_stream(comm)
     with torch.cuda.stream(comm):  # no-op for CPU tensors (comm is None)
         for d in dims:
+            permuting, sends = [], []
             for i, A in enumerate(fields):
                 p = _slab_parts(A, d, gg, width, received=received[i], lead=lead)
                 if p is None:
                     continue
                 if p[0] == "self":
-                    lo, hi = p[1], p[2]
+                    received[i][d] = (p[1], p[2])
                 else:
-                    reqs, lo, hi = _issue_permute(d, gg, p[1], p[2])
-                    for req in reqs:
-                        req.wait()
-                received[i][d] = (lo, hi)
-                pends[i].append((d, width, lead, lo, hi))
+                    permuting.append(i)
+                    sends.append(p[1:])
+            for i, lo_hi in zip(permuting, _permute_fields(d, gg, sends, coalesce)):
+                received[i][d] = lo_hi
+            for i in range(len(fields)):
+                if d in received[i]:
+                    pends[i].append((d, width, lead, *received[i][d]))
     return pends
 
 
@@ -361,14 +559,23 @@ def finish_slab_exchange(fields, pends):
     return tuple(fields)
 
 
-def update_halo(*fields, width: int = 1):
+def update_halo(*fields, width: int = 1, coalesce: bool | None = None):
     """Update the halo planes of the given field(s) in place.
 
     Returns the field for one argument, a tuple for several (the JAX
     package's functional signature; the tensors themselves were updated).
     ``width``: halo planes refreshed per side (default 1); ``width=w`` on a
     deep-halo grid (``overlap >= 2w``) refreshes ``w`` planes per exchange,
-    licensing ``w`` stencil steps between exchanges.
+    licensing ``w`` stencil steps between exchanges.  ``coalesce`` (None:
+    ``IGG_COALESCE``, default on): where two or more fields permute a
+    dimension, one send/receive pair per side and dtype word width carries
+    them all; ``False`` sends each field on its own.  Bit-identical either
+    way.
+
+    Differentiable: under grad mode the returned tensors carry the
+    exchange's adjoint across ranks (every rank must then run the backward).
+    A leaf that requires grad cannot be updated in place; pass
+    ``A.clone()``.
     """
     _grid.check_initialized()
     gg = _grid.global_grid()
@@ -377,5 +584,5 @@ def update_halo(*fields, width: int = 1):
     if width < 1:
         raise ValueError(f"width must be >= 1 (got {width})")
     _validate_fields(fields, gg)
-    exchange(fields, width=width)
-    return fields[0] if len(fields) == 1 else tuple(fields)
+    out = exchange(fields, width=width, coalesce=coalesce)
+    return out[0] if len(out) == 1 else out

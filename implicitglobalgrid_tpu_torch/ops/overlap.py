@@ -253,25 +253,103 @@ def hide_communication(update_fn=None, *, radius: int = 1, exchange=None):
     ``exchange`` optionally lists which outputs get a halo update (default:
     every output that has a halo).  Equal, bit for bit, to
     ``update_halo(*update_fn(*fields))`` (``update_halo`` of the exchanged
-    outputs); the outputs are new tensors.
+    outputs); the outputs are new tensors.  Under autograd the forward is
+    the overlapped update and the backward that of
+    ``update_halo(*update_fn(*fields))`` (`fused_with_plain_grad`).
     """
     if update_fn is None:
         return lambda f: hide_communication(f, radius=radius, exchange=exchange)
     return overlapped(update_fn, radius, exchange, lead=0)
 
 
-def overlapped(update_fn, radius: int, exchange, *, lead: int):
+def overlapped(update_fn, radius: int, exchange, *, lead: int, coalesce=None):
     """`hide_communication`'s wrapper for fields with ``lead`` leading
-    ensemble axes (0, or 1 for a batch: `models._batched`)."""
+    ensemble axes (0, or 1 for a batch: `models._batched`); ``coalesce`` as
+    in `ops.halo.update_halo`."""
     # (single output?, [(shape, dtype)] of the outputs) per input signature:
     # the meta pass costs milliseconds of host time, so it runs once each.
     outputs: dict = {}
 
     def wrapped(*fields):
-        return _overlapped_update(update_fn, fields, radius, exchange, outputs, lead)
+        single, out_meta, exchange_idx = _output_plan(update_fn, fields, exchange, outputs, lead)
+        if not _halo.needs_grad(fields):
+            out = _overlapped_update(update_fn, fields, radius, out_meta, exchange_idx, lead,
+                                     coalesce)
+        else:
+            def plain(*f):
+                out = list(_as_tuple(update_fn(*f)))
+                ex = _halo.exchange([out[i] for i in exchange_idx], lead=lead, coalesce=coalesce)
+                for i, A in zip(exchange_idx, ex):
+                    out[i] = A
+                return tuple(out)
+
+            # The wrapper saves its inputs for the backward; copies keep them
+            # from later in-place writes (porous exchanges the fluxes it
+            # reads here once its PT loop ends).
+            out = fused_with_plain_grad(
+                lambda *f: _overlapped_update(update_fn, f, radius, out_meta, exchange_idx, lead,
+                                              coalesce),
+                plain)(*(f.clone() for f in fields))
+        return out[0] if single else out
 
     wrapped.__wrapped__ = update_fn
     return wrapped
+
+
+class _PlainGrad(torch.autograd.Function):
+    """`fused_with_plain_grad`'s function: ``fast`` forward, ``plain``
+    backward."""
+
+    @staticmethod
+    def forward(ctx, fast, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        with torch.no_grad():
+            return tuple(fast(*inputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs)
+        live = [(o, g) for o, g in zip(out, grads) if o.requires_grad]
+        wrt = [x for x in inputs if x.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in live], wrt, [g for _, g in live],
+                                       allow_unused=True) if live else [None] * len(wrt))
+        return (None, None, *(next(got) if x.requires_grad else None for x in inputs))
+
+
+def check_forward_only(what: str, tensors) -> None:
+    """Raise `ValueError` for a kernel call that autograd would have to
+    record: the kernels are forward-only, as the JAX package's Pallas
+    kernels are, on every device (the plain versions that CPU tensors run
+    would differentiate, the CUDA kernels not)."""
+    if _halo.needs_grad(tensors):
+        raise ValueError(
+            f"{what} is forward-only and has no backward; its inputs require grad under "
+            "grad mode. Differentiate a model cadence instead (make_multi_step(..., "
+            "fused_k=k)): it runs the kernel in the forward and the plain cadence's "
+            "groups in the backward (models._fused, fused_with_plain_grad), or call "
+            "the kernel under torch.no_grad()."
+        )
+
+
+def fused_with_plain_grad(fast, plain):
+    """``fast`` in the forward, the gradient of ``plain`` in the backward:
+    the port's counterpart of the JAX package's ``fused_with_xla_grad``.
+
+    ``fast(*inputs)`` and ``plain(*inputs)`` return tuples of tensors that
+    agree up to rounding: a hand-written kernel group (the kernels are
+    forward-only, as in JAX) or an overlapped update, and the plain torch
+    code of the same steps and exchanges.  The forward runs ``fast`` under
+    `torch.no_grad` and saves only the inputs; the backward recomputes
+    ``plain`` on detached copies of them and returns `torch.autograd.grad`
+    of it (rematerialization: one plain forward per backward).  Every input
+    that carries a gradient must be an argument, never a closure: what the
+    functions close over is a constant to autograd.
+    """
+    return lambda *inputs: _PlainGrad.apply(fast, plain, *inputs)
 
 
 def _halo_dims(shapes, gg) -> list[int]:
@@ -287,28 +365,35 @@ def _as_tuple(out):
     return (out,) if isinstance(out, torch.Tensor) else tuple(out)
 
 
-def _overlapped_update(update_fn, fields, radius, exchange, outputs, lead):
+def _output_plan(update_fn, fields, exchange, outputs, lead):
+    """``(single output?, [(shape, dtype)] of the outputs, indices of the
+    exchanged outputs)`` of ``update_fn`` on ``fields`` (the meta pass runs
+    once per input signature, cached in ``outputs``)."""
     gg = _grid.global_grid()
-    fields = tuple(fields)
     key = tuple((tuple(f.shape), f.dtype) for f in fields)
     if key not in outputs:
         meta_out = update_fn(*(torch.empty_like(f, device="meta") for f in fields))
         outputs[key] = (isinstance(meta_out, torch.Tensor),
                         [(tuple(a.shape), a.dtype) for a in _as_tuple(meta_out)])
     single, out_meta = outputs[key]
+    if exchange is not None:
+        return single, out_meta, list(exchange)
     # Block shapes (a batched output's member's): grid dim d is axis d + lead.
-    out_shapes = [shape[lead:] for shape, _ in out_meta]
-    if exchange is None:
-        exchange_idx = [
-            i for i, s in enumerate(out_shapes)
-            if any(_halo.ol(d, shape=s, gg=gg) >= 2 for d in range(len(s)))
-        ]
-    else:
-        exchange_idx = list(exchange)
+    return single, out_meta, [
+        i for i, (shape, _) in enumerate(out_meta)
+        if any(_halo.ol(d, shape=shape[lead:], gg=gg) >= 2 for d in range(len(shape) - lead))
+    ]
 
+
+def _overlapped_update(update_fn, fields, radius, out_meta, exchange_idx, lead, coalesce):
+    """The overlapped update (steps 1-4 below); returns the outputs as a
+    tuple."""
+    gg = _grid.global_grid()
+    fields = tuple(fields)
+    out_shapes = [shape[lead:] for shape, _ in out_meta]
     hdims = _halo_dims([out_shapes[i] for i in exchange_idx], gg)
     if not hdims:
-        return update_fn(*fields)
+        return _as_tuple(update_fn(*fields))
 
     # Slab width per halo dim: wide enough to contain every exchanged field's
     # send plane (index ol-1 / n-ol).
@@ -358,7 +443,7 @@ def _overlapped_update(update_fn, fields, radius, exchange, outputs, lead):
     # -- 2. the exchange starts from the slabs (it reads only the send
     # planes, which lie inside them) on the communication stream.
     ex = [outs[i] for i in exchange_idx]
-    pend = _halo.begin_slab_exchange(ex, hdims, width=1, lead=lead)
+    pend = _halo.begin_slab_exchange(ex, hdims, width=1, lead=lead, coalesce=coalesce)
 
     # -- 3. the interior, on the compute stream meanwhile.
     int_in = list(fields)
@@ -373,7 +458,7 @@ def _overlapped_update(update_fn, fields, radius, exchange, outputs, lead):
 
     # -- 4. the received planes land on the assembled outputs.
     _halo.finish_slab_exchange(ex, pend)
-    return outs[0] if single else tuple(outs)
+    return tuple(outs)
 
 
 def _crop(x, a: int, m: int):

@@ -1,12 +1,15 @@
-"""Environment-variable configuration tier read by `init_global_grid`.
+"""Environment-variable configuration tier of the port.
 
 The deploy-time tier below the kwargs tier (explicit kwargs > ``IGG_*`` env
-> defaults), restricted to the keys the port's `init_global_grid` reads:
+> defaults), restricted to the keys the port reads: `init_global_grid`'s
+and the halo exchange's:
 
 ========================  ====================================================
 ``IGG_QUIET``             nonzero suppresses the rank-0 banner
 ``IGG_REORDER``           default ``reorder`` flag (recorded on the grid)
 ``IGG_OVERLAP``           default overlap in every dimension (default 2)
+``IGG_COALESCE``          0 sends each field's halo on its own; unset or
+                          nonzero coalesces (read per exchange call)
 ========================  ====================================================
 """
 
@@ -27,6 +30,18 @@ def _int_env(name: str) -> int | None:
             f"Environment variable {name} must be an integer (format: a "
             f"base-10 integer), got {val!r}."
         ) from None
+
+
+def coalesce_env() -> bool | None:
+    """``IGG_COALESCE``: multi-field halo-exchange message combining.
+
+    ``None`` = unset (auto: coalesce whenever >= 2 fields share a
+    dimension's exchange), ``False`` = per-field messages, ``True`` = the
+    auto behavior pinned explicitly.  Bit-identical either way (JAX
+    ``utils/config.coalesce_env``).
+    """
+    val = _int_env("IGG_COALESCE")
+    return None if val is None else val > 0
 
 
 def env_config() -> dict:

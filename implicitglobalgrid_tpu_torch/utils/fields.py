@@ -102,3 +102,21 @@ def block_from_numpy(arr, local_shape=None, *, coords=None, device=None):
         )
     t = torch.from_numpy(np.array(block, order="C"))  # a writable copy
     return t.to(gg.device if device is None else device)
+
+
+def block_slice(A, slices):
+    """This rank's block ``A`` sliced with ``slices``, as a new tensor.
+
+    The JAX package's ``block_slice`` slices every local block of a global
+    array; a port field is its rank's block, so this is ``A[slices]``, with
+    the JAX package's check that the rank is kept.  ``block_slice(T,
+    (slice(1, -1),) * 3)`` is the block's interior: the idiom the reference
+    uses before `gather!`, where the halo is stripped locally before
+    gathering.
+    """
+    _grid.check_initialized()
+    slices = (slices,) if isinstance(slices, slice) else tuple(slices)
+    out = A[slices]
+    if out.dim() != A.dim():
+        raise ValueError("block_slice: slices must preserve the number of dimensions.")
+    return out.clone()

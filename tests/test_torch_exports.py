@@ -17,7 +17,6 @@ import implicitglobalgrid_tpu_torch as tigg
 #: Names of the JAX package's ``__all__`` that the port does not export yet,
 #: with the ROADMAP Queue A item (or leftover) that brings each.
 NOT_YET_PORTED = {
-    "block_slice": "leftover 1",
     "profile_trace": "14",
     **dict.fromkeys(("check_fields", "FieldReport", "GuardError", "RunGuard", "watchdog",
                      "save_checkpoint", "restore_checkpoint", "latest_checkpoint",
@@ -82,3 +81,34 @@ def test_stencil_of_hide_communication_runs_like_jax_usage():
     got, want = fast(A), tigg.update_halo(step(A))
     assert torch.equal(got, want)
     assert not torch.equal(got, A)
+
+
+def test_block_slice_matches_jax():
+    """`block_slice` of the same numpy field: one device (the block is the
+    field), then two devices split in x, where JAX slices each block of the
+    global-block array and the port each rank's block."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((16, 6, 5))
+    interior = (slice(1, -1),) * 3
+    for ndev, cases in ((1, (interior, slice(2, 5), (slice(None), slice(0, 3)))), (2, (interior,))):
+        jigg.init_global_grid(16 // ndev, 6, 5, dimx=ndev, quiet=True,
+                              devices=jax.devices()[:ndev])
+        tigg.init_global_grid(16 // ndev, 6, 5, quiet=True, device="cpu")
+        for sl in cases:
+            want = np.asarray(jigg.block_slice(jax.numpy.asarray(A), sl))
+            for r in range(ndev):
+                block = torch.from_numpy(A[r * 16 // ndev:(r + 1) * 16 // ndev].copy())
+                got = tigg.block_slice(block, sl)
+                h = want.shape[0] // ndev
+                np.testing.assert_array_equal(got.numpy(), want[r * h:(r + 1) * h])
+                got.zero_()  # a copy: the block is untouched
+                assert not torch.equal(block, torch.zeros_like(block))
+        with pytest.raises(ValueError, match="preserve the number of dimensions") as e:
+            tigg.block_slice(torch.from_numpy(A), (0,))
+        with pytest.raises(ValueError) as ej:
+            jigg.block_slice(jax.numpy.asarray(A), (0,))
+        assert str(e.value) == str(ej.value)
+        jigg.finalize_global_grid()
+        tigg.finalize_global_grid()

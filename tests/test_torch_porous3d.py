@@ -158,10 +158,14 @@ def test_two_process_solver_matches_jax_two_devices(step_kw, tmp_path):
 
 def test_later_slices_raise_not_implemented():
     state, params = tpc.setup(8, 8, 8, npt=2, dtype=torch.float64, quiet=True, device="cpu")
-    for kw in (dict(autotune=True), dict(coalesce=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tpc.make_multi_step(params, 2, **kw)
-    # Ported since: batch=True (Queue A item 10, tests/test_torch_batched.py);
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tpc.make_multi_step(params, 2, autotune=True)
+    # Ported since: coalesce=True (Queue A leftover 2, tests/test_torch_coalesced.py)
+    # runs, bit for bit with coalesce=False;
+    assert all(torch.equal(a, b) for a, b in zip(
+        tpc.make_multi_step(params, 2, coalesce=True)(*state),
+        tpc.make_multi_step(params, 2, coalesce=False)(*state)))
+    # batch=True (Queue A item 10, tests/test_torch_batched.py);
     # (Queue A item 9): pipelined belongs to the group cadences,
     # as in JAX, and hide_comm runs (tests/test_torch_overlap.py).
     with pytest.raises(ValueError, match="per-iteration path has no group"):
