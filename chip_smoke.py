@@ -101,6 +101,33 @@ and then prints no result line):
    unbatched gradient bit for bit; and diffusion 256^3 forced
    ``pipelined=True``: its gradient equals the serialized one bit for bit.
 
+10. Resilience and the integrity plane (``utils.resilience``,
+   ``utils.checkpoint``, ``integrity``) at phase 3's config.  (a)
+   ``guarded_time_loop`` over 8 calls of ``make_multi_step(4, fused_k=4)``
+   under ``guard_every=1`` rollback, ``checkpoint_every=4`` keep 2 and
+   ``integrity_every=1``: 16 launches (8 committed, 8 audit re-runs), the
+   final T bit for bit the unguarded loop's, generations 4 and 8 verified,
+   the restore bit-exact; a second loop over the directory with nt=12
+   resumes at step 8 and equals 12 uninterrupted calls bit for bit.
+   Printed: ms per call of the plain loop and of the guarded loop with
+   every hook off (interleaved), one ``check_fields`` probe, one audit
+   (replay + word compare), ``save_checkpoint`` and ``restore_checkpoint``
+   of the 128 MiB state in ms and MiB/s.  (d) ``IGG_INTEGRITY=1``
+   ``update_halo(T, Cp)`` (self-partner hops) bit-exact with the unchecked
+   exchange, an armed ``arm_transport_flip(0)`` raising
+   ``IntegrityError(detector="transport_checksum")`` naming rank 0, and
+   both exchanges' ms.  (c) ``bit_flip:step2:T`` caught by the audit at
+   step 2, invisible to ``guard_every=1`` alone; ``halo_corrupt:step2``
+   tripping the guard, and under rollback ending bit for bit the clean
+   run; ``ckpt_corrupt:step4`` making ``latest_checkpoint`` fall back to
+   step 2.  (b) ``integrity_every=1`` over one fused group of diffusion,
+   acoustic and porous npt=12: serialized at phases 3, 5 and 6's configs,
+   and forced ``pipelined=True`` at phase 7b's periodic x/y/z configs
+   (with z alone periodic there is no x/y exchange to split): each audit
+   must find the re-run bit-identical (the kernels and the two-stream
+   schedule are run-to-run deterministic); any mismatch fails, with no
+   retry.
+
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 and
@@ -115,10 +142,15 @@ card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -560,6 +592,7 @@ def main() -> None:
     phase7(torch, igg, modules, reset_counts, counts, card)
     phase8(torch, igg, modules, reset_counts, counts, card, records)
     phase9(torch, igg, reset_counts, counts, card)
+    phase10(torch, igg, reset_counts, counts, card)
 
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
@@ -1011,6 +1044,243 @@ def phase9(torch, igg, reset_counts, counts, card) -> None:
     if not same or c["fused_diffusion_steps"] != 2 * 4:
         fail(f"pipelined gradient: bit-exact {same}, launches {c} (expected 8)")
     igg.finalize_global_grid()
+
+
+@contextlib.contextmanager
+def fault_env(res, **env):
+    """Set ``IGG_*`` variables for one case (None unsets) and re-arm the
+    fault injector around it."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    res.reset_fault_injector()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        res.reset_fault_injector()
+
+
+def phase10(torch, igg, reset_counts, counts, card) -> None:
+    from implicitglobalgrid_tpu_torch.integrity import IntegrityError, audit_fields
+    from implicitglobalgrid_tpu_torch.models import acoustic3d, diffusion3d, porous_convection3d
+    from implicitglobalgrid_tpu_torch.ops import halo
+    from implicitglobalgrid_tpu_torch.utils import checkpoint as ck
+    from implicitglobalgrid_tpu_torch.utils import resilience as res
+    from implicitglobalgrid_tpu_torch.utils import telemetry as tele
+
+    n, f32 = 256, torch.float32
+    ov = lambda o: dict(overlapx=o, overlapy=o, overlapz=o)  # noqa: E731
+    work = Path(tempfile.mkdtemp(prefix="igg_phase10_"))
+
+    def counter(name):
+        return tele.snapshot()["counters"].get(name, 0)
+
+    def clones(state):
+        return tuple(a.clone() for a in state)
+
+    def loop(step, state, calls):
+        for _ in range(calls):
+            state = step(*state)
+        return state
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    try:
+        # -- 10a: the guarded diffusion main path ------------------------------
+        (T0, Cp), params = diffusion3d.setup(n, n, n, periodx=1, periody=1, periodz=1,
+                                             dtype=f32, quiet=True, **ov(8))
+        state0 = (T0, Cp)
+        step = diffusion3d.make_multi_step(params, 4, fused_k=4)
+        ref8 = loop(step, clones(state0), 8)
+        ref12 = loop(step, ref8, 4)
+        ckdir = work / "a"
+
+        def guard():
+            return res.RunGuard(guard_every=1, policy="rollback", checkpoint_every=4,
+                                checkpoint_dir=str(ckdir), checkpoint_keep=2,
+                                integrity_every=1, names=("T", "Cp"))
+
+        audits, mismatches = counter("integrity.audits"), counter("integrity.audit_mismatches")
+        torch.cuda.synchronize()
+        reset_counts()
+        got = res.guarded_time_loop(step, clones(state0), 8, guard=guard())
+        torch.cuda.synchronize()
+        c = counts()
+        steps = [s for s, _ in ck.checkpoint_steps(ckdir)]
+        verified = [ck.verify_checkpoint(p) for _, p in ck.checkpoint_steps(ckdir)]
+        restored, rstep, _ = ck.restore_checkpoint(ck.latest_checkpoint(ckdir))
+        print(f"phase 10a: diffusion 256^3 f32 periodic x/y/z overlap 8, 8 calls of "
+              f"make_multi_step(4, fused_k=4) under guard_every=1 rollback, checkpoint_every=4 "
+              f"keep 2, integrity_every=1: launches {c} (8 committed + 8 audit re-runs); "
+              f"final T vs the unguarded loop {'bit-exact' if same(got, ref8) else 'DIFFERS'}; "
+              f"audits {counter('integrity.audits') - audits}, mismatches "
+              f"{counter('integrity.audit_mismatches') - mismatches}; generations {steps}, "
+              f"verify {verified}; restore (step {rstep}) "
+              f"{'bit-exact' if same(restored, got) else 'DIFFERS'}")
+        if not (same(got, ref8) and same(restored, got) and rstep == 8):
+            fail("the guarded diffusion loop or its checkpoint differs from the unguarded loop")
+        if c["fused_diffusion_steps"] != 16 or steps != [4, 8] or any(verified):
+            fail(f"guarded loop: launches {c}, generations {steps}, verify {verified}")
+        reset_counts()
+        resumed = res.guarded_time_loop(step, clones(state0), 12, guard=guard())
+        torch.cuda.synchronize()
+        c = counts()
+        print(f"phase 10a: a second loop over the same directory with nt=12 resumes at step 8: "
+              f"launches {c} (4 committed + 4 audit re-runs); vs 12 uninterrupted calls "
+              f"{'bit-exact' if same(resumed, ref12) else 'DIFFERS'}")
+        if not same(resumed, ref12) or c["fused_diffusion_steps"] != 8:
+            fail(f"resumed loop: launches {c}, bit-exact {same(resumed, ref12)}")
+
+        # Costs: the idle guard against the plain loop (A, B, A, B, ...), one
+        # probe, one audit's compare and replay, a save and a restore.
+        calls = 20
+        idle = lambda: res.guarded_time_loop(step, state0, calls, guard=res.RunGuard())  # noqa: E731
+        plain = lambda: loop(step, state0, calls)  # noqa: E731
+        plain_ms, idle_ms = [], []
+        for _ in range(3):
+            plain_ms.append(cuda_ms(torch, plain, reps=2, warmup=1) / calls)
+            idle_ms.append(cuda_ms(torch, idle, reps=2, warmup=1) / calls)
+        probe_ms = cuda_ms(torch, lambda: res.check_fields(*got), reps=10)
+        redone = step(*state0)
+        compare_ms = cuda_ms(torch, lambda: audit_fields(redone, redone), reps=10)
+        replay_ms = cuda_ms(torch, lambda: step(*res.snapshot_state(state0)), reps=10)
+        mib = sum(a.numel() * a.element_size() for a in got) / 2**20
+        t0 = time.perf_counter()
+        path = ck.save_checkpoint(work / "timing", got, 8)
+        save_s = time.perf_counter() - t0
+        like = clones(got)
+        t0 = time.perf_counter()
+        ck.restore_checkpoint(path, like=like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        print(f"phase 10a: ms per call of 20 calls, interleaved: plain loop {plain_ms!r}, "
+              f"guarded loop with every hook off {idle_ms!r} {card}")
+        print(f"phase 10a: one check_fields probe of T, Cp {probe_ms!r} ms; one audit = one "
+              f"replayed call from a snapshot {replay_ms!r} ms + the word compare "
+              f"{compare_ms!r} ms {card}")
+        print(f"phase 10a: save_checkpoint of the {mib!r} MiB state {save_s * 1e3!r} ms "
+              f"({mib / save_s!r} MiB/s); restore_checkpoint into the state {restore_s * 1e3!r} "
+              f"ms ({mib / restore_s!r} MiB/s) {card}")
+        if not same(like, got):
+            fail("the timed restore differs from the saved state")
+
+        # -- 10d: transport checksums on the self-partner hops -----------------
+        T1 = got[0].clone()
+        want = halo.update_halo(T1.clone(), Cp.clone())
+        with fault_env(res, IGG_INTEGRITY="1"):
+            checked = halo.update_halo(T1.clone(), Cp.clone())
+            halo.arm_transport_flip(0)
+            try:
+                halo.update_halo(T1.clone(), Cp.clone())
+                caught = None
+            except IntegrityError as e:
+                caught = e
+            checked_ms = cuda_ms(torch, lambda: halo.update_halo(T1, Cp), reps=10)
+        plain_ms = cuda_ms(torch, lambda: halo.update_halo(T1, Cp), reps=10)
+        print(f"phase 10d: IGG_INTEGRITY=1 update_halo(T, Cp) 256^3 f32 periodic x/y/z: vs the "
+              f"unchecked exchange {'bit-exact' if same(checked, want) else 'DIFFERS'}; armed "
+              f"flip on rank 0 -> {type(caught).__name__} detector "
+              f"{getattr(caught, 'detector', None)} implicating rank "
+              f"{getattr(caught, 'implicated_rank', None)}; checked {checked_ms!r} ms, "
+              f"unchecked {plain_ms!r} ms {card}")
+        if not same(checked, want) or caught is None or caught.detector != "transport_checksum" \
+                or caught.implicated_rank != 0:
+            fail("the checksummed exchange differs or missed the armed flip")
+
+        # -- 10c: faults on the card ---------------------------------------------
+        def guarded(nt, spec, **kw):
+            with fault_env(res, IGG_FAULT_INJECT=spec):
+                return res.guarded_time_loop(step, clones(state0), nt,
+                                             guard=res.RunGuard(names=("T", "Cp"), **kw))
+
+        try:
+            guarded(3, "bit_flip:step2:T", integrity_every=1)
+            fail("bit_flip:step2:T passed the shadow audit")
+        except IntegrityError as e:
+            flip = (e.detector, e.step)
+        passed = guarded(3, "bit_flip:step2:T", guard_every=1)
+        finite = all(bool(torch.isfinite(a).all()) for a in passed)
+        try:
+            guarded(3, "halo_corrupt:step2", guard_every=1)
+            fail("halo_corrupt:step2 passed the guard")
+        except res.GuardError as e:
+            trip = e.step
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            rolled = guarded(3, "halo_corrupt:step2", guard_every=1, policy="rollback")
+        ref3 = loop(step, clones(state0), 3)
+        guarded(4, "ckpt_corrupt:step4", checkpoint_every=2, checkpoint_dir=str(work / "c"))
+        fallback = ck.latest_checkpoint(work / "c")
+        print(f"phase 10c: bit_flip:step2:T under integrity_every=1 -> IntegrityError {flip}; "
+              f"under guard_every=1 alone it runs through, finite {finite}; halo_corrupt:step2 "
+              f"trips the guard at step {trip}, and under rollback ends "
+              f"{'bit-exact with the clean run' if same(rolled, ref3) else 'DIFFERENT'}; "
+              f"ckpt_corrupt:step4 -> latest_checkpoint falls back to {Path(fallback).name}")
+        if flip != ("shadow_audit", 2) or not finite or trip != 2 or not same(rolled, ref3) \
+                or not fallback.endswith("step_00000002"):
+            fail("a fault on the card was not caught as expected")
+        igg.finalize_global_grid()
+
+        # -- 10b: the kernels are run-to-run deterministic ---------------------
+        # (label, model, setup kwargs, steps per call, k, names, kernel,
+        # launches per call serialized; the pipelined schedule doubles them).
+        # Serialized at the main paths' configs (phases 3, 5, 6); pipelined
+        # at phase 7b's periodic x/y/z twins, since with z alone periodic
+        # one block has no x/y exchange to split and pipelined=True runs
+        # the serialized schedule.
+        xyz = dict(periodx=1, periody=1, periodz=1)
+        cases = (
+            ("diffusion 256^3 f32 periodic x/y/z overlap 8, one group of 4 steps fused_k=4",
+             diffusion3d, dict(**xyz, **ov(8)), 4, 4, ("T", "Cp"), "fused_diffusion_steps", 1,
+             (False, True)),
+            ("acoustic 256^3 f32 periodic z overlap 12, one group of 6 steps fused_k=6",
+             acoustic3d, dict(periodz=1, **ov(12)), 6, 6, ("P", "Vx", "Vy", "Vz"),
+             "fused_leapfrog_steps", 1, (False,)),
+            ("acoustic 256^3 f32 periodic x/y/z overlap 12, one group of 6 steps fused_k=6",
+             acoustic3d, dict(**xyz, **ov(12)), 6, 6, ("P", "Vx", "Vy", "Vz"),
+             "fused_leapfrog_steps", 1, (True,)),
+            ("porous 256^3 f32 npt=12 periodic z overlap 14, 1 step fused_k=6",
+             porous_convection3d, dict(npt=12, periodz=1, **ov(14)), 1, 6,
+             ("T", "Pf", "qDx", "qDy", "qDz"), "fused_pt_iterations", 2, (False,)),
+            ("porous 256^3 f32 npt=12 periodic x/y/z overlap 14, 1 step fused_k=6",
+             porous_convection3d, dict(npt=12, **xyz, **ov(14)), 1, 6,
+             ("T", "Pf", "qDx", "qDy", "qDz"), "fused_pt_iterations", 2, (True,)),
+        )
+        for label, model, kw, nsteps, k, names, kname, per_call, schedules in cases:
+            state, params = model.setup(n, n, n, dtype=f32, quiet=True, **kw)
+            for pipelined in schedules:
+                want_launches = 2 * per_call * (2 if pipelined else 1)
+                s = model.make_multi_step(params, nsteps, fused_k=k, pipelined=pipelined)
+                audits = counter("integrity.audits")
+                mismatches = counter("integrity.audit_mismatches")
+                reset_counts()
+                try:
+                    out = res.guarded_time_loop(
+                        s, clones(state), 1, guard=res.RunGuard(integrity_every=1, names=names))
+                except IntegrityError as e:
+                    fail(f"{label} pipelined={pipelined}: the audit found a mismatch: {e}")
+                torch.cuda.synchronize()
+                c = counts()
+                mismatches = counter("integrity.audit_mismatches") - mismatches
+                print(f"phase 10b: {label}, {'pipelined' if pipelined else 'serialized'}: "
+                      f"integrity_every=1 audits {counter('integrity.audits') - audits}, "
+                      f"mismatches {mismatches}, launches {c} (committed + re-run)")
+                if counter("integrity.audits") - audits != 1 or mismatches \
+                        or c[kname] != want_launches \
+                        or not all(bool(torch.isfinite(a).all()) for a in out):
+                    fail(f"{label} pipelined={pipelined}: audits, launches {c} or finiteness")
+            igg.finalize_global_grid()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 if __name__ == "__main__":

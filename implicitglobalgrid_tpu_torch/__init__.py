@@ -13,6 +13,11 @@ The three-function promise::
     igg.init_global_grid(nx, ny, nz)   # topology + implicit global grid
     igg.update_halo(T)                 # per-step boundary exchange (in place)
     igg.finalize_global_grid()         # teardown
+
+Resilience (`utils.resilience`, `utils.checkpoint`, the `integrity`
+subpackage): NaN/Inf guards, fault injection, checkpoints in the JAX
+package's on-disk format with elastic restore, and the integrity plane;
+the models' ``run()`` takes the JAX package's resilience knobs.
 """
 
 from .ops.gather import gather
@@ -34,6 +39,13 @@ from .parallel.grid import (
     toc,
 )
 from .parallel.topology import NDIMS, NNEIGHBORS_PER_DIM, PROC_NULL
+from .utils.checkpoint import (
+    latest_checkpoint,
+    prune_checkpoints,
+    restore_checkpoint,
+    save_checkpoint,
+    verify_checkpoint,
+)
 from .utils.fields import (
     block_from_numpy,
     block_slice,
@@ -43,15 +55,20 @@ from .utils.fields import (
     ones,
     zeros,
 )
+from .utils.resilience import FieldReport, GuardError, RunGuard, check_fields, watchdog
 from .utils.tools import nx_g, ny_g, nz_g, x_g, y_g, z_g
 
 __all__ = [
+    "FieldReport",
     "GlobalGrid",
+    "GuardError",
     "NDIMS",
     "NNEIGHBORS_PER_DIM",
     "PROC_NULL",
+    "RunGuard",
     "block_from_numpy",
     "block_slice",
+    "check_fields",
     "check_initialized",
     "coord_fields",
     "distributed",
@@ -65,18 +82,24 @@ __all__ = [
     "halosize",
     "hide_communication",
     "init_global_grid",
+    "latest_checkpoint",
     "local_shape",
     "nx_g",
     "ny_g",
     "nz_g",
     "ol",
     "ones",
+    "prune_checkpoints",
+    "restore_checkpoint",
+    "save_checkpoint",
     "select_device",
     "set_global_grid",
     "stencil",
     "tic",
     "toc",
     "update_halo",
+    "verify_checkpoint",
+    "watchdog",
     "x_g",
     "y_g",
     "z_g",

@@ -52,6 +52,27 @@ Tasks:
   `begin_slab_exchange` + `finish_slab_exchange` on copies, saved as
   ``<prefix><name>_split`` with its ``P2POp``s as ``<prefix>p2p_split``.
 
+* ``"resilience"``: a list of ``actions`` run in order, each saving its
+  results under its ``prefix`` (``p``).  ``{"do": "grid", "nxyz",
+  "grid"}`` (re)initializes the grid, keeping the process group.  The
+  others cut their ``fields`` from the inputs at ``shapes`` (``batched``
+  maps a field to its B, its inputs being ``<name>@<b>``): ``"save"``
+  writes `save_checkpoint` at ``path``/``step``; ``"restore"`` saves this
+  rank's blocks of `restore_checkpoint` ``(path)`` as ``<p><i>`` (with
+  ``"gather": true`` also their de-duplicated gathers as ``<p>g<i>``);
+  ``"gather"`` saves `gather` ``(dedup=True)`` on rank 0 as
+  ``<p><name>`` (member ``m`` of a batched field as ``<p><name>@<m>``);
+  ``"check"`` poisons field 0 on rank ``rank`` and saves the
+  `check_fields` bad blocks as ``<p>bad``; ``"audit"`` flips bit 0 of one
+  word of a copy of field 0 on rank ``rank`` and saves `audit_fields`'s
+  implicated ranks as ``<p>ranks``; ``"transport"`` saves whether an
+  ``IGG_INTEGRITY=1`` exchange equals the unchecked one as ``<p>same``,
+  then arms ``arm_transport_flip(rank)`` and saves ``[detector raised,
+  implicated rank]`` as ``<p>flip``.  ``"run"`` runs ``diffusion3d.run``
+  on ``args`` ``(nt, nx, ny, nz)`` with ``kw`` under ``env`` and saves
+  this rank's T as ``<p>T`` (a ``worker_crash`` fault ends the process
+  there).
+
 Run one rank by hand with ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json`` and the environment variables above set.
 """
@@ -157,6 +178,8 @@ def _run(task: dict) -> dict:
     dtypes = {"float32": torch.float32, "float64": torch.float64}
     workdir = Path(task["workdir"])
     inputs = dict(np.load(workdir / "inputs.npz"))
+    if task["kind"] == "resilience":
+        return _run_resilience(task, inputs)
     init_global_grid(*task["nxyz"], device="cpu", quiet=True, **task.get("grid", {}))
     try:
         if task["kind"] == "halo":
@@ -359,6 +382,106 @@ def _grad_run(run: dict, inputs: dict, models: dict, dtypes: dict, p2p: list, ra
         fd.append((sides[0] - sides[1]) / (2 * eps))
     if fd:
         out[f"{pre}fd"] = np.array(fd)
+    return out
+
+
+def _run_resilience(task: dict, inputs: dict) -> dict:
+    """The ``"resilience"`` task (see the module docstring)."""
+    import torch
+
+    from . import (check_fields, finalize_global_grid, gather, grid_is_initialized,
+                   init_global_grid, restore_checkpoint, save_checkpoint, update_halo)
+    from .integrity import IntegrityError, audit_fields
+    from .models import diffusion3d
+    from .ops import halo
+    from .utils.fields import block_from_numpy
+
+    rank = int(os.environ["RANK"])
+    out = {}
+
+    def fields(act):
+        out = []
+        for n, shape in zip(act["fields"], act["shapes"]):
+            nb = act.get("batched", {}).get(n)
+            out.append(block_from_numpy(inputs[n], tuple(shape)) if nb is None else torch.stack(
+                [block_from_numpy(inputs[f"{n}@{b}"], tuple(shape)) for b in range(nb)]))
+        return out
+
+    def gather_dedup(key, A):
+        """Rank 0 keeps `gather(dedup=True)` of ``A`` (of each member of a
+        batched field, as ``<key>@<m>``)."""
+        for m in range(A.shape[0]) if A.dim() > 3 else [None]:
+            got = gather(A, dedup=True, member=m)
+            if got is not None:
+                out[key + ("" if m is None else f"@{m}")] = got
+
+    def regrid(act=None):
+        if grid_is_initialized():
+            finalize_global_grid(finalize_distributed=False)
+        if act is not None:
+            init_global_grid(*act["nxyz"], device="cpu", quiet=True, **act.get("grid", {}))
+
+    for act in task["actions"]:
+        do, pre = act["do"], act.get("prefix", "")
+        if do == "grid":
+            regrid(act)
+        elif do == "save":
+            save_checkpoint(act["path"], fields(act), act["step"])
+        elif do == "restore":
+            state, _, _ = restore_checkpoint(act["path"])
+            out.update({f"{pre}{i}": A.numpy() for i, A in enumerate(state)})
+            for i, A in enumerate(state if act.get("gather") else ()):
+                gather_dedup(f"{pre}g{i}", A)
+        elif do == "gather":
+            for name, A in zip(act["fields"], fields(act)):
+                gather_dedup(pre + name, A)
+        elif do == "check":
+            A = fields(act)[0]
+            if rank == act["rank"]:
+                A[(1,) * A.dim()] = float("inf")
+            bad = check_fields(A, names=("A",)).bad_blocks.get("A", ())
+            out[pre + "bad"] = np.array(bad, dtype=np.int64).reshape(-1, 3)
+        elif do == "audit":
+            A = fields(act)[0]
+            B = A.clone()
+            if rank == act["rank"]:
+                B.view(torch.int64 if B.element_size() == 8 else torch.int32)[1, 1, 1] ^= 1
+            out[pre + "ranks"] = np.array(audit_fields((A,), (B,)).implicated_ranks)
+        elif do == "transport":
+            fs = fields(act)
+            plain = update_halo(*[A.clone() for A in fs])
+            os.environ["IGG_INTEGRITY"] = "1"
+            try:
+                checked = update_halo(*[A.clone() for A in fs])
+                out[pre + "same"] = np.array(all(torch.equal(a, b)
+                                                 for a, b in zip(plain, checked)))
+                halo.arm_transport_flip(act["rank"])
+                flip = [0, -2]
+                try:
+                    update_halo(*[A.clone() for A in fs])
+                except IntegrityError as e:
+                    flip = [int(e.detector == "transport_checksum"), e.implicated_rank]
+                out[pre + "flip"] = np.array(flip)
+            finally:
+                del os.environ["IGG_INTEGRITY"]
+        elif do == "run":
+            regrid()
+            saved_env = {k: os.environ.get(k) for k in act.get("env", {})}
+            os.environ.update(act.get("env", {}))
+            try:
+                T = diffusion3d.run(*act["args"], finalize=False, quiet=True, device="cpu",
+                                    dtype=torch.float64, **act.get("kw", {}))
+            finally:
+                for k, v in saved_env.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            out[pre + "T"] = T.numpy()
+        else:
+            raise ValueError(f"unknown resilience action {do!r}")
+    if grid_is_initialized():
+        finalize_global_grid()
     return out
 
 

@@ -324,12 +324,21 @@ def make_multi_step(
 
 
 def run(nt: int, nx: int = 128, ny: int = 128, nz: int = 128, *,
-        finalize: bool = True, **setup_kwargs):
+        finalize: bool = True, guard_every: int | None = None,
+        guard_policy: str | None = None, checkpoint_every: int | None = None,
+        checkpoint_dir: str | None = None, checkpoint_keep: int | None = None,
+        integrity_every: int | None = None, **setup_kwargs):
     """End-to-end run (the reference's ``diffusion3D()`` without
     visualization): ``nt`` steps of `make_step`; returns this rank's final T.
-    The JAX package's resilience hooks (``guard_every``, ``checkpoint_*``,
-    ...) come with a later slice and raise `NotImplementedError`."""
-    return _common.run(setup, make_step, nt, (nx, ny, nz), finalize, setup_kwargs)
+    """
+    return _common.run(
+        setup, make_step, nt, (nx, ny, nz), finalize, setup_kwargs, names=("T", "Cp"),
+        guard_every=guard_every, guard_policy=guard_policy,
+        checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
+        checkpoint_keep=checkpoint_keep, integrity_every=integrity_every)
+
+
+run.__doc__ += _common.RUN_HOOKS_DOC
 
 
 def temperature(state):

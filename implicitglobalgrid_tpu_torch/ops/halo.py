@@ -51,18 +51,73 @@ order as the forward (NCCL matches messages by order).  The exchange stays
 in place, so a field that is a leaf requiring grad cannot be exchanged
 (torch refuses in-place writes to such a leaf): exchange
 ``update_halo(A.clone())``, or the output of an update.
+
+Transport checksums (``IGG_INTEGRITY=1``, `integrity.transport`): every
+exchange runs under a `TransportCollector`; every group then packs to the
+word view, singletons and self-partner hops included, and each wire buffer
+carries one XOR-fold checksum word that the receiver verifies.  A mismatch
+raises `IntegrityError` on the receiver, naming the sender.  Unset or 0,
+the exchange and its messages are exactly the unchecked ones.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..integrity import transport as _itransport
 from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS, PROC_NULL
-from ..utils.config import coalesce_env
+from ..utils.config import coalesce_env, integrity_enabled_env
+
+#: Armed ``bit_flip:…:transport`` target rank, consumed by the next
+#: checksummed exchange (`arm_transport_flip`).
+_transport_flip: int | None = None
+
+#: Armed ``net_delay`` seconds, slept before the next exchange
+#: (`arm_exchange_delay`).
+_exchange_delay: float | None = None
+
+#: Post-exchange hook of `update_halo` (`set_post_exchange_hook`).
+_post_exchange_hook = None
+
+
+def arm_transport_flip(proc: int) -> None:
+    """Arm a one-shot in-flight payload-word flip on rank ``proc``'s next
+    checksummed exchange (the ``bit_flip`` fault kind's transport
+    placement): its first hop XORs bit 0 of payload word 0 of the send
+    buffers after the checksum fold.  Every rank consumes the arming at its
+    next checksummed exchange; nothing happens unless ``IGG_INTEGRITY=1``."""
+    global _transport_flip
+    _transport_flip = int(proc)
+
+
+def _take_transport_flip() -> int | None:
+    global _transport_flip
+    proc, _transport_flip = _transport_flip, None
+    return proc
+
+
+def arm_exchange_delay(seconds: float) -> None:
+    """Sleep ``seconds`` before this rank's next exchange (the ``net_delay``
+    fault kind): the rank enters the exchange late and its peers wait."""
+    global _exchange_delay
+    _exchange_delay = float(seconds)
+
+
+def set_post_exchange_hook(fn):
+    """Install ``fn(fields_tuple) -> fields_tuple`` on the output of every
+    `update_halo` (None removes it); returns the previous hook.  The fault
+    harness poisons exchanged fields here
+    (`utils.resilience.install_halo_fault_hook`)."""
+    global _post_exchange_hook
+    prev = _post_exchange_hook
+    _post_exchange_hook = fn
+    return prev
 
 
 def local_shape(A, gg=None) -> tuple[int, ...]:
@@ -308,7 +363,28 @@ def resolve_coalesce(coalesce):
     return True if env is None else env
 
 
-def _permute_fields(d: int, gg, sends, coalesce, tag0: int = 0):
+def _self_transport(d: int, gg, send_lo, send_hi, tag0: int = 0):
+    """`_issue_permute` of a block that is its own partner along ``d``: what
+    I send to my lower partner (me) lands as my upper receive."""
+    return [], send_hi, send_lo
+
+
+def _verify_landed(recv_lo, recv_hi, like):
+    """Split the landed wire buffers of one checksummed hop into payloads
+    and a ``(2,)`` mismatch flag (lo, hi; False where no partner sent),
+    folding both sides in one stack."""
+    recvs = [recv_lo, recv_hi]
+    sides = [i for i, r in enumerate(recvs) if r is not None]
+    bad = torch.zeros(2, dtype=torch.bool, device=like.device)
+    if sides:
+        payloads, bad[sides] = _itransport.split_and_verify(torch.stack([recvs[i] for i in sides]))
+        for row, i in enumerate(sides):
+            recvs[i] = payloads[row]
+    return recvs[0], recvs[1], bad
+
+
+def _permute_fields(d: int, gg, sends, coalesce, tag0: int = 0, col=None,
+                    issue=_issue_permute):
     """Per-field ``(recv_lo, recv_hi)`` of a dim-``d`` permute of the slab
     pairs ``sends`` (one ``(send_lo, send_hi)`` per field).
 
@@ -319,27 +395,43 @@ def _permute_fields(d: int, gg, sends, coalesce, tag0: int = 0):
     one after another, so messages pair up under NCCL's order matching and
     gloo's tags alike.  The received words are the sent words, so the result
     equals the per-field transport bit for bit.
+
+    With a `integrity.transport.TransportCollector` ``col`` (the
+    checksummed exchange's) every group packs (singletons too), each wire
+    buffer carries its checksum word (`append_checksum`), and the landed
+    buffers are verified (`split_and_verify`) with the flags recorded on
+    ``col``.  ``issue``: the transport (`_self_transport` for self-partner
+    hops, which only the checksummed exchange routes here).
     """
     if not sends:
         return []
-    pack = len(sends) > 1 and resolve_coalesce(coalesce)
+    pack = col is not None or (len(sends) > 1 and resolve_coalesce(coalesce))
     groups: dict = {}
     for j, (lo, _) in enumerate(sends):
         key = _word_width(lo.dtype) if pack else j
         groups.setdefault(key, []).append(j)
     out: list = [None] * len(sends)
-    for idxs in groups.values():
-        if len(idxs) == 1:
+    for key, idxs in groups.items():
+        if len(idxs) == 1 and col is None:
             (j,) = idxs
-            reqs, lo, hi = _issue_permute(d, gg, *sends[j], tag0)
+            reqs, lo, hi = issue(d, gg, *sends[j], tag0)
             for req in reqs:
                 req.wait()
             out[j] = (lo, hi)
             continue
         bufs = [torch.cat([_flat_words(sends[j][side]) for j in idxs]) for side in (0, 1)]
-        reqs, recv_lo, recv_hi = _issue_permute(d, gg, *bufs, tag0)
+        if col is not None:
+            # Both sides' wire buffers in one stack: one fold for the two.
+            wire = _itransport.append_checksum(torch.stack(bufs))
+            if col.take_flip() == gg.me:
+                wire[:, 0] ^= 1
+            bufs = [wire[0], wire[1]]
+        reqs, recv_lo, recv_hi = issue(d, gg, *bufs, tag0)
         for req in reqs:
             req.wait()
+        if col is not None:
+            recv_lo, recv_hi, bad = _verify_landed(recv_lo, recv_hi, bufs[0])
+            col.record(dim=d, width=key, fields=idxs, bad=bad)
         off = 0
         for j in idxs:
             like = sends[j][0]
@@ -363,21 +455,30 @@ def _write_planes(A, d: int, width: int, lo, hi, lead: int = 0) -> None:
         A.narrow(a, 0, width).copy_(lo)
 
 
-def _exchange_dim(fields, d: int, gg, width: int, lead: int, coalesce) -> None:
-    """The dim-``d`` exchange of ``fields``, in place."""
+def _exchange_dim(fields, d: int, gg, width: int, lead: int, coalesce, col=None) -> None:
+    """The dim-``d`` exchange of ``fields``, in place; checksummed under
+    the collector ``col`` (self-partner hops included)."""
     permuting, sends = [], []
     for A in fields:
         p = _slab_parts(A, d, gg, width, lead=lead)
         if p is None:
             continue
-        if p[0] == "self":
+        if p[0] == "permute":
+            permuting.append(A)
+            sends.append(p[1:])
+        elif col is None:
             # Source and target slabs are disjoint (ol >= 2w), so both copies
             # read pre-exchange values.
             _write_planes(A, d, width, p[1], p[2], lead)
         else:
             permuting.append(A)
-            sends.append(p[1:])
-    for A, (lo, hi) in zip(permuting, _permute_fields(d, gg, sends, coalesce)):
+            # A self-partner hop sends (to-lower, to-upper) = (src_hi, src_lo).
+            sends.append((p[2], p[1]))
+    if not permuting:
+        return
+    issue = _self_transport if col is not None and _partner_self(gg, d) else _issue_permute
+    for A, (lo, hi) in zip(permuting, _permute_fields(d, gg, sends, coalesce, col=col,
+                                                      issue=issue)):
         _write_planes(A, d, width, lo, hi, lead)
 
 
@@ -416,11 +517,11 @@ def _adjoint_dim(grads, d: int, gg, width: int, lead: int, coalesce) -> None:
             G.narrow(a, n - o, width).add_(from_upper)
 
 
-def _exchange_fields(fields, width: int, lead: int, coalesce) -> None:
+def _exchange_fields(fields, width: int, lead: int, coalesce, col=None) -> None:
     """Every dimension's exchange of ``fields`` in sequence, in place."""
     gg = _grid.global_grid()
     for d in range(NDIMS):
-        _exchange_dim(fields, d, gg, width, lead, coalesce)
+        _exchange_dim(fields, d, gg, width, lead, coalesce, col)
 
 
 def _zero_planes(G, a: int, width: int, lo: bool, hi: bool) -> None:
@@ -440,8 +541,8 @@ class _Exchange(torch.autograd.Function):
     """The exchange of ``fields`` in place, with its adjoint as backward."""
 
     @staticmethod
-    def forward(ctx, width, lead, coalesce, *fields):
-        _exchange_fields(fields, width, lead, coalesce)
+    def forward(ctx, width, lead, coalesce, col, *fields):
+        _exchange_fields(fields, width, lead, coalesce, col)
         ctx.mark_dirty(*fields)
         ctx.args = (width, lead, coalesce)
         return fields
@@ -453,7 +554,7 @@ class _Exchange(torch.autograd.Function):
         grads = [g.clone(memory_format=torch.contiguous_format) for g in grads]
         for d in reversed(range(NDIMS)):
             _adjoint_dim(grads, d, gg, width, lead, coalesce)
-        return (None, None, None, *grads)
+        return (None, None, None, None, *grads)
 
 
 def exchange_dims(A, dims, *, width: int = 1, lead: int = 0):
@@ -470,12 +571,71 @@ def exchange(fields, *, width: int = 1, lead: int = 0, coalesce=None) -> tuple:
     sequence, every field per dimension (`update_halo`'s body; the
     ensemble's through `models._batched.update_halo`, ``lead = 1``).
     Returns the fields; under autograd (`needs_grad`) they carry the
-    exchange's adjoint (`_Exchange`)."""
+    exchange's adjoint (`_Exchange`).  An armed `arm_exchange_delay` sleeps
+    first; with ``IGG_INTEGRITY=1`` the exchange runs checksummed under a
+    `TransportCollector` and its flags are read once at the end
+    (`_check_transport_flags`)."""
+    global _exchange_delay
+    if _exchange_delay is not None:
+        delay, _exchange_delay = _exchange_delay, None
+        time.sleep(delay)
+    if integrity_enabled_env() is not True:
+        return _exchange(fields, width, lead, coalesce)
+    col = _itransport.TransportCollector(flip_proc=_take_transport_flip())
+    with _itransport.use_collector(col):
+        out = _exchange(fields, width, lead, coalesce, col)
+    _check_transport_flags(_grid.global_grid(), col)
+    return out
+
+
+def _exchange(fields, width, lead, coalesce, col=None) -> tuple:
     if needs_grad(fields):
         # Resolved once, so that the backward packs as the forward did.
-        return _Exchange.apply(width, lead, resolve_coalesce(coalesce), *fields)
-    _exchange_fields(fields, width, lead, coalesce)
+        return _Exchange.apply(width, lead, resolve_coalesce(coalesce), col, *fields)
+    _exchange_fields(fields, width, lead, coalesce, col)
     return tuple(fields)
+
+
+def _check_transport_flags(gg, col) -> None:
+    """Rank-local verdict of one checksummed exchange: one read of the
+    recorded flags; the first nonzero names a hop whose landed payload
+    contradicts its checksum word, and the SENDER (my partner on that side,
+    `neighbors_table`) is implicated.  Raises locally and never drives a
+    collective (JAX ``ops/halo._check_transport_flags``)."""
+    from ..integrity.errors import IntegrityError
+    from ..utils import telemetry as _telemetry
+
+    flags = col.stacked_flags()
+    if flags is None:
+        return
+    host = flags.cpu().numpy()
+    if not host.any():
+        return
+    hop, side = (int(i) for i in np.argwhere(host)[0])
+    rec = col.records[hop]
+    dim = rec["dim"]
+    # flag column 0 = the lo receive (sent by my LOWER partner), 1 = hi
+    direction = "lo" if side == 0 else "hi"
+    sender = int(gg.neighbors[side, dim])
+    fields = tuple(rec["fields"])
+    coords = tuple(int(c) for c in gg.coords)
+    _telemetry.counter("integrity.transport_mismatches").inc()
+    # The JAX package also dumps a ``reason=sdc`` flight bundle here
+    # (ROADMAP item 14).
+    _telemetry.event(
+        "integrity.transport_mismatch", detector="transport_checksum",
+        dim=dim, direction=direction, fields=list(fields), block=list(coords),
+        implicated_rank=sender,
+    )
+    raise IntegrityError(
+        f"halo transport checksum mismatch: dim {dim} ({direction} "
+        f"receive) at block {coords} — the landed payload contradicts "
+        f"its checksum word; implicating sender rank {sender}. A finite "
+        f"bit flip in flight passes every NaN guard; quarantine the "
+        f"implicated device, do not restart in place.",
+        detector="transport_checksum", implicated_rank=sender,
+        dim=dim, direction=direction, fields=fields,
+    )
 
 
 #: High-priority communication stream per CUDA device (`_comm_stream`).
@@ -585,4 +745,6 @@ def update_halo(*fields, width: int = 1, coalesce: bool | None = None):
         raise ValueError(f"width must be >= 1 (got {width})")
     _validate_fields(fields, gg)
     out = exchange(fields, width=width, coalesce=coalesce)
+    if _post_exchange_hook is not None:
+        out = tuple(_post_exchange_hook(tuple(out)))
     return out[0] if len(out) == 1 else out

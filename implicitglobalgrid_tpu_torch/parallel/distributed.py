@@ -39,25 +39,67 @@ def is_distributed_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def init_distributed(device: torch.device, **kwargs) -> None:
+def init_distributed(device: torch.device, *, retries: int | None = None,
+                     timeout_s: float | None = None, backoff_s: float | None = None,
+                     **kwargs) -> None:
     """Join the process group named by the environment (no-op if joined).
 
     The backend follows the device: NCCL for CUDA, gloo for the CPU.
     ``kwargs`` pass through to `torch.distributed.init_process_group`.
+
+    Bring-up is guarded, as in the JAX package: a failed join is retried
+    with exponential backoff and seeded jitter under an overall deadline
+    (`utils.resilience.retry_call`), and a watchdog dumps every thread's
+    stack if an attempt hangs past it.  Knobs resolve kwarg > env >
+    default: ``retries`` / ``IGG_INIT_RETRIES`` (3), ``timeout_s`` /
+    ``IGG_INIT_TIMEOUT_S`` (600), ``backoff_s`` / ``IGG_INIT_BACKOFF_S``
+    (1); ``IGG_WATCHDOG_S`` overrides the watchdog (0 = off).
+    ``IGG_FAULT_INJECT=init_flake:N`` fails the first N attempts.
     """
+    from ..utils import config as _config
+    from ..utils import resilience as _resilience
+
     global _owns_runtime
     if is_distributed_initialized():
         return
+    if retries is None:
+        retries = _config.init_retries_env()
+        retries = _resilience.DEFAULT_INIT_RETRIES if retries is None else retries
+    if timeout_s is None:
+        timeout_s = _config.init_timeout_env()
+        timeout_s = _resilience.DEFAULT_INIT_TIMEOUT_S if timeout_s is None else timeout_s
+    if backoff_s is None:
+        backoff_s = _config.init_backoff_env()
+        backoff_s = _resilience.DEFAULT_INIT_BACKOFF_S if backoff_s is None else backoff_s
+    if retries < 0:
+        raise ValueError(f"retries must be >= 0 (got {retries})")
+    if timeout_s <= 0:
+        raise ValueError(f"timeout_s must be > 0 (got {timeout_s})")
     backend = "nccl" if device.type == "cuda" else "gloo"
     kwargs.setdefault("init_method", "env://")
     if device.type == "cuda":
         torch.cuda.set_device(device)  # NCCL binds to the current device
-    dist.init_process_group(
-        backend,
-        rank=int(os.environ["RANK"]),
-        world_size=int(os.environ["WORLD_SIZE"]),
-        **kwargs,
-    )
+    rank = int(os.environ["RANK"])
+    injector = _resilience.get_fault_injector()
+
+    def attempt():
+        injector.maybe_flake_init()
+        try:
+            dist.init_process_group(
+                backend, rank=rank, world_size=int(os.environ["WORLD_SIZE"]), **kwargs
+            )
+        except BaseException:
+            # A half-joined group must not poison the next attempt.
+            if is_distributed_initialized():
+                dist.destroy_process_group()
+            raise
+
+    wd_env = _config.watchdog_env()
+    with _resilience.watchdog(timeout_s if wd_env is None else wd_env):
+        _resilience.retry_call(
+            attempt, retries=retries, timeout_s=timeout_s, base_backoff_s=backoff_s,
+            seed=rank, describe="torch.distributed.init_process_group",
+        )
     _owns_runtime = True
 
 
@@ -76,7 +118,16 @@ def process_count() -> int:
     return dist.get_world_size() if is_distributed_initialized() else 1
 
 
-def sync_all_processes() -> None:
-    """Host-level barrier across all processes (no-op for one process)."""
-    if process_count() > 1:
+def sync_all_processes(device: torch.device | None = None) -> None:
+    """Host-level barrier across all processes (no-op for one process).
+
+    Under NCCL the barrier runs on the rank's device: ``device`` (default
+    the current CUDA device) goes in as ``device_ids``; gloo needs none.
+    """
+    if process_count() <= 1:
+        return
+    if dist.get_backend() == "nccl":
+        index = torch.cuda.current_device() if device is None else device.index
+        dist.barrier(device_ids=[index])
+    else:
         dist.barrier()

@@ -51,6 +51,63 @@ class GlobalGrid:
     def replace(self, **kw) -> "GlobalGrid":
         return dataclasses.replace(self, **kw)
 
+    def checkpoint_meta(self) -> dict:
+        """Topology metadata a checkpoint must match to be restorable here
+        (`utils.checkpoint`): the implicit global grid's identity — local
+        sizes, dims, overlaps, periods — with the JAX package's keys, so
+        either package reads the other's manifests.  ``device_type`` is
+        ``"cuda"`` or ``"cpu"`` and informational."""
+        return {
+            "dims": list(self.dims),
+            "nxyz": list(self.nxyz),
+            "nxyz_g": list(self.nxyz_g),
+            "overlaps": list(self.overlaps),
+            "periods": list(self.periods),
+            "disp": int(self.disp),
+            "nprocs": int(self.nprocs),
+            "device_type": self.device.type,
+        }
+
+
+def elastic_topology_error(saved: dict, current: dict) -> str | None:
+    """Why ``current`` cannot elastically restore a checkpoint written under
+    ``saved``, or None when it can.
+
+    Both arguments are `GlobalGrid.checkpoint_meta` dicts.  The implicit
+    global grid makes topology a derived quantity: any ``(nxyz, dims,
+    overlaps, periods)`` implying the same de-duplicated global size
+    (`topology.implied_global_shape`) describes the same physical grid.
+    Periodicity must match: it is part of the physical problem, not of the
+    decomposition.  The messages are the JAX package's.
+    """
+    mismatches = []
+    if tuple(saved.get("periods", ())) != tuple(current.get("periods", ())):
+        mismatches.append(
+            f"periods: checkpoint {list(saved.get('periods', []))} vs "
+            f"current {list(current.get('periods', []))} (periodicity is "
+            f"part of the physical problem, not of the decomposition)"
+        )
+    saved_g = topology.implied_global_shape(
+        saved["nxyz"], saved["dims"], saved["overlaps"], saved["periods"]
+    )
+    cur_g = topology.implied_global_shape(
+        current["nxyz"], current["dims"], current["overlaps"], current["periods"]
+    )
+    if saved_g != cur_g:
+        mismatches.append(
+            f"implied global size nxyz_g = dims*(nxyz-overlaps) + "
+            f"overlaps*(periods==0): checkpoint "
+            f"{list(saved.get('nxyz_g', saved_g))} (from nxyz="
+            f"{list(saved['nxyz'])}, dims={list(saved['dims'])}, overlaps="
+            f"{list(saved['overlaps'])}) vs current {list(cur_g)} (from "
+            f"nxyz={list(current['nxyz'])}, dims={list(current['dims'])}, "
+            f"overlaps={list(current['overlaps'])}) — adjust the local "
+            f"sizes so the target topology spans the same global grid"
+        )
+    if mismatches:
+        return "; ".join(mismatches)
+    return None
+
 
 _global_grid: GlobalGrid | None = None
 _epoch = 0
@@ -250,7 +307,7 @@ def _barrier() -> None:
     gg = global_grid()
     if gg.device.type == "cuda":
         torch.cuda.synchronize(gg.device)
-    _distributed.sync_all_processes()
+    _distributed.sync_all_processes(gg.device)
 
 
 def tic() -> None:

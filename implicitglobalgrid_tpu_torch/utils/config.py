@@ -10,26 +10,110 @@ and the halo exchange's:
 ``IGG_OVERLAP``           default overlap in every dimension (default 2)
 ``IGG_COALESCE``          0 sends each field's halo on its own; unset or
                           nonzero coalesces (read per exchange call)
+``IGG_INIT_RETRIES``      bring-up retries after the first failure (>= 0)
+``IGG_INIT_TIMEOUT_S``    overall bring-up deadline in seconds (> 0)
+``IGG_INIT_BACKOFF_S``    base bring-up retry backoff in seconds (> 0)
+``IGG_WATCHDOG_S``        bring-up hang watchdog in seconds (0 = off)
+``IGG_GUARD_EVERY``       NaN/Inf guard cadence in steps (0 = off)
+``IGG_GUARD_POLICY``      ``raise`` | ``warn`` | ``rollback``
+``IGG_CHECKPOINT_EVERY``  checkpoint cadence in steps (0 = off)
+``IGG_CHECKPOINT_DIR``    default checkpoint directory
+``IGG_CHECKPOINT_KEEP``   newest generations kept after each save (0 = all)
+``IGG_FAULT_INJECT``      fault spec (`utils.resilience.FaultInjector`)
+``IGG_INTEGRITY``         integrity-plane master switch (1 = transport
+                          checksums on; 0 = every detector off)
+``IGG_INTEGRITY_EVERY``   shadow-step audit cadence in steps (0 = off)
+``IGG_GENERATION``        this incarnation's generation token (fencing)
+``IGG_FENCE_DIR``         directory of the authoritative ``generation.json``
+``IGG_TELEMETRY``         0 turns the counter/event sink off (default on)
+``IGG_TELEMETRY_DIR``     event-log directory (unset = no event files)
 ========================  ====================================================
+
+The resilience knobs are read per call, not snapshotted at init; their
+names, validation and messages are the JAX package's
+(``utils/config.py``).
 """
 
 from __future__ import annotations
 
 import os
 
+#: Valid values for ``IGG_GUARD_POLICY`` / the models' ``guard_policy``.
+GUARD_POLICIES = ("raise", "warn", "rollback")
 
-def _int_env(name: str) -> int | None:
-    """Read an integer env var; ``None`` when unset/empty."""
+
+def _int_env(name: str, *, minimum: int | None = None) -> int | None:
+    """Read an integer env var; ``None`` when unset/empty.  The message
+    names the variable, the accepted range and the obtained value."""
     val = os.environ.get(name)
     if val is None or val == "":
         return None
     try:
-        return int(val)
+        parsed = int(val)
     except ValueError:
         raise ValueError(
-            f"Environment variable {name} must be an integer (format: a "
-            f"base-10 integer), got {val!r}."
+            f"Environment variable {name} must be an integer"
+            f"{_range_desc(minimum)} (format: a base-10 integer), got {val!r}."
         ) from None
+    _check_range(name, parsed, minimum, val)
+    return parsed
+
+
+def _float_env(name: str, *, minimum: float | None = None,
+               exclusive_minimum: float | None = None) -> float | None:
+    """Read a float env var; ``None`` when unset/empty (`_int_env`'s
+    error contract)."""
+    val = os.environ.get(name)
+    if val is None or val == "":
+        return None
+    try:
+        parsed = float(val)
+    except ValueError:
+        raise ValueError(
+            f"Environment variable {name} must be a number"
+            f"{_range_desc(minimum, exclusive_minimum)} "
+            f"(format: a decimal number of seconds, e.g. '2' or '0.5'), "
+            f"got {val!r}."
+        ) from None
+    _check_range(name, parsed, minimum, val, exclusive_minimum)
+    return parsed
+
+
+def _choice_env(name: str, choices: tuple[str, ...]) -> str | None:
+    """Read an enumerated env var; ``None`` when unset/empty."""
+    val = os.environ.get(name)
+    if val is None or val == "":
+        return None
+    if val not in choices:
+        raise ValueError(
+            f"Environment variable {name} must be one of "
+            f"{', '.join(repr(c) for c in choices)}, got {val!r}."
+        )
+    return val
+
+
+def _str_env(name: str) -> str | None:
+    return os.environ.get(name) or None
+
+
+def _range_desc(minimum, exclusive_minimum=None) -> str:
+    if exclusive_minimum is not None:
+        return f" > {exclusive_minimum}"
+    if minimum == 0:
+        return " >= 0 (non-negative)"
+    if minimum is not None:
+        return f" >= {minimum}"
+    return ""
+
+
+def _check_range(name, parsed, minimum, val, exclusive_minimum=None):
+    if ((minimum is not None and parsed < minimum)
+            or (exclusive_minimum is not None and parsed <= exclusive_minimum)):
+        kind = "an integer" if isinstance(parsed, int) else "a number"
+        raise ValueError(
+            f"Environment variable {name} must be {kind}"
+            f"{_range_desc(minimum, exclusive_minimum)}, got {val!r}."
+        )
 
 
 def coalesce_env() -> bool | None:
@@ -57,3 +141,98 @@ def env_config() -> dict:
     if overlap is not None:
         cfg["overlap"] = overlap
     return cfg
+
+
+# -- Resilience knobs (read per call) -----------------------------------------
+
+
+def init_retries_env() -> int | None:
+    """``IGG_INIT_RETRIES``: retry attempts after the first bring-up failure."""
+    return _int_env("IGG_INIT_RETRIES", minimum=0)
+
+
+def init_timeout_env() -> float | None:
+    """``IGG_INIT_TIMEOUT_S``: overall bring-up deadline in seconds (> 0)."""
+    return _float_env("IGG_INIT_TIMEOUT_S", exclusive_minimum=0)
+
+
+def init_backoff_env() -> float | None:
+    """``IGG_INIT_BACKOFF_S``: base retry backoff in seconds (> 0)."""
+    return _float_env("IGG_INIT_BACKOFF_S", exclusive_minimum=0)
+
+
+def watchdog_env() -> float | None:
+    """``IGG_WATCHDOG_S``: bring-up hang watchdog in seconds (>= 0; None =
+    unset, the caller's default; 0 = explicitly off)."""
+    return _float_env("IGG_WATCHDOG_S", minimum=0)
+
+
+def guard_every_env() -> int | None:
+    """``IGG_GUARD_EVERY``: NaN/Inf guard cadence in steps (>= 0; 0 = off)."""
+    return _int_env("IGG_GUARD_EVERY", minimum=0)
+
+
+def guard_policy_env() -> str | None:
+    """``IGG_GUARD_POLICY``: ``raise`` | ``warn`` | ``rollback``."""
+    return _choice_env("IGG_GUARD_POLICY", GUARD_POLICIES)
+
+
+def checkpoint_every_env() -> int | None:
+    """``IGG_CHECKPOINT_EVERY``: checkpoint cadence in steps (>= 0; 0 = off)."""
+    return _int_env("IGG_CHECKPOINT_EVERY", minimum=0)
+
+
+def checkpoint_dir_env() -> str | None:
+    """``IGG_CHECKPOINT_DIR``: default checkpoint directory."""
+    return _str_env("IGG_CHECKPOINT_DIR")
+
+
+def checkpoint_keep_env() -> int | None:
+    """``IGG_CHECKPOINT_KEEP``: retention depth in generations (>= 0;
+    0 = keep every generation)."""
+    return _int_env("IGG_CHECKPOINT_KEEP", minimum=0)
+
+
+def fault_inject_env() -> str | None:
+    """``IGG_FAULT_INJECT``: raw fault spec (parsed by `utils.resilience`)."""
+    return _str_env("IGG_FAULT_INJECT")
+
+
+def integrity_enabled_env() -> bool | None:
+    """``IGG_INTEGRITY``: integrity-plane master switch (tri-state).
+
+    ``None`` = unset (transport checksums off; ``IGG_INTEGRITY_EVERY``
+    still honored), ``False`` = ``0`` (every detector off), ``True`` =
+    armed.  Read at the exchange entry and at loop construction.
+    """
+    val = _int_env("IGG_INTEGRITY")
+    return None if val is None else val > 0
+
+
+def integrity_every_env() -> int | None:
+    """``IGG_INTEGRITY_EVERY``: shadow-step audit cadence in steps
+    (>= 0; 0 = off).  Ignored when ``IGG_INTEGRITY=0``."""
+    return _int_env("IGG_INTEGRITY_EVERY", minimum=0)
+
+
+def generation_env() -> int | None:
+    """``IGG_GENERATION``: this incarnation's generation token (>= 0;
+    None = unfenced, the default outside a supervised run)."""
+    return _int_env("IGG_GENERATION", minimum=0)
+
+
+def fence_dir_env() -> str | None:
+    """``IGG_FENCE_DIR``: directory of the authoritative ``generation.json``
+    fence file (unset = fence checks off)."""
+    return _str_env("IGG_FENCE_DIR")
+
+
+def telemetry_enabled_env() -> bool:
+    """``IGG_TELEMETRY``: the counter/event sink's switch (default on)."""
+    val = _int_env("IGG_TELEMETRY")
+    return True if val is None else val > 0
+
+
+def telemetry_dir_env() -> str | None:
+    """``IGG_TELEMETRY_DIR``: event-log directory (unset = no files)."""
+    return _str_env("IGG_TELEMETRY_DIR")

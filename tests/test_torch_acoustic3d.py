@@ -164,8 +164,9 @@ def test_later_slices_raise_not_implemented():
                              device="cpu")
     assert params.hide_comm
     tigg.finalize_global_grid()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ta.run(1, 8, 8, 8, quiet=True, device="cpu", guard_every=1)
+    # run(guard_every=...) (Queue A item 12, tests/test_torch_resilience.py).
+    P = ta.run(1, 8, 8, 8, quiet=True, device="cpu", guard_every=1)
+    assert torch.isfinite(P).all()
     assert not tigg.grid_is_initialized()
 
 

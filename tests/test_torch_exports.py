@@ -18,9 +18,6 @@ import implicitglobalgrid_tpu_torch as tigg
 #: with the ROADMAP Queue A item (or leftover) that brings each.
 NOT_YET_PORTED = {
     "profile_trace": "14",
-    **dict.fromkeys(("check_fields", "FieldReport", "GuardError", "RunGuard", "watchdog",
-                     "save_checkpoint", "restore_checkpoint", "latest_checkpoint",
-                     "verify_checkpoint", "prune_checkpoints"), "12"),
     "serving": "13",
     **dict.fromkeys(("telemetry", "telemetry_snapshot", "dump_metrics", "tracing",
                      "trace_span", "dump_trace", "liveplane", "profiling", "supervisor",
@@ -81,6 +78,19 @@ def test_stencil_of_hide_communication_runs_like_jax_usage():
     got, want = fast(A), tigg.update_halo(step(A))
     assert torch.equal(got, want)
     assert not torch.equal(got, A)
+
+
+def test_gather_takes_dedup_as_jax_does():
+    """`gather`'s keyword-only parameters are the JAX package's (its
+    test-only ``_force_chunked`` hook aside), ``dedup`` included."""
+    import inspect
+
+    def kwonly(fn):
+        return {n: p.default for n, p in inspect.signature(fn).parameters.items()
+                if p.kind is p.KEYWORD_ONLY and not n.startswith("_")}
+
+    assert kwonly(tigg.gather) == kwonly(jigg.gather)
+    assert kwonly(tigg.gather)["dedup"] is False
 
 
 def test_block_slice_matches_jax():
