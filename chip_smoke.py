@@ -110,7 +110,8 @@ and then prints no result line):
    the restore bit-exact; a second loop over the directory with nt=12
    resumes at step 8 and equals 12 uninterrupted calls bit for bit.
    Printed: ms per call of the plain loop and of the guarded loop with
-   every hook off (interleaved), one ``check_fields`` probe, one audit
+   every hook off (interleaved), one ``check_fields`` probe in turns with
+   its flags alone and their mask form (``mask_nonfinite``), one audit
    (replay + word compare), ``save_checkpoint`` and ``restore_checkpoint``
    of the 128 MiB state in ms and MiB/s.  (d) ``IGG_INTEGRITY=1``
    ``update_halo(T, Cp)`` (self-partner hops) bit-exact with the unchecked
@@ -128,12 +129,43 @@ and then prints no result line):
    schedule are run-to-run deterministic); any mismatch fails, with no
    retry.
 
+11. Serving (``serving.ServingLoop``, ``serving.FrontDoor``) over the batched
+   kernels.  (a) A diffusion pool at phase 3's config (256^3 float32,
+   periodic x/y/z, overlap 8), capacity 4, 4 steps a round
+   (``fused_k=4``), 6 requests of distinct ``ic_scale`` and budgets 8, 12
+   and 16 steps, so that 2 members are admitted mid-flight: one batched
+   launch a round, every member bit for bit its standalone unbatched
+   ``make_multi_step(budget, fused_k=4)`` run; then a full pool's steady
+   state: ms per round (``run_round`` wall), the bare batched step, the
+   select of a partial pool and the finite probe each alone (CUDA events;
+   the probe in turns with its mask form),
+   member-steps/s, p50/p99 of ``serving.round_seconds``, and the seconds of
+   one member's ``state_digest`` (what the door pays at each retirement).
+   Every pool's step must leave its input pool bit-unchanged.  (b) In that
+   pool: a NaN member is evicted and the 6 others stay bit for bit 11a's;
+   under ``"rollback"`` a slot poisoned between rounds is rolled back once and
+   its member ends bit for bit 11a's; ``IGG_INTEGRITY_EVERY=1`` audits
+   every round with 0 mismatches (two launches a round).  (c) A porous
+   pool at phase 6's config (npt=12, periodic z, overlap 14), capacity 2,
+   1 step a round (``fused_k=6``): one member converges (its ``tol`` set
+   between two of its standalone steps' residuals; its residual equals the
+   standalone fused run's, and the plain cadence's within 2e-5), one
+   completes its budget of 2, both bit for bit their standalone runs, two
+   launches a round; an acoustic pool at phase 5's config, capacity 4, one
+   round of 6 steps (``fused_k=6``), one launch, every member bit for bit
+   its standalone run.  (d) ``FrontDoor`` on 127.0.0.1 over an 11a pool:
+   the 6 requests POSTed, ``serve_rounds``, the results fetched: every
+   digest equals ``state_digest`` of 11a's member; request latency
+   p50/p99; then ``_execute_resize`` to capacity 5 with members live and
+   ``elastic_resume`` into a fresh loop and door: the same digests, and
+   both times.
+
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 and
 the main path's k; phase 3 also times the width-4 exchange of T.
-Every main path runs with every launch count set to 0 just before it and
-read just after.  Then one JSON line with every kernel's launches, error and
+Every main path, phase 11's pools included, runs with every launch count
+set to 0 just before it and read just after.  Then one JSON line with every kernel's launches, error and
 times (kernel, plain version, bound from the card's published HBM rate and
 float32 peak), and as the last line ``{"ok": true, "device": {...}}``.
 Every time is taken with CUDA events after a warm-up and printed beside the
@@ -195,6 +227,29 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def mask_nonfinite(torch, fields, per_member: bool):
+    """The finite probe's mask form, which the one-pass ``torch.aminmax``
+    read replaced: a ``~isfinite`` bool tensor the size of each field,
+    reduced to a flag per field (or per member), then one host read.  It is
+    timed in turns with the probe the port runs (phases 10a, 11a)."""
+    if per_member:
+        bad = torch.zeros(fields[0].shape[0], dtype=torch.int32, device=fields[0].device)
+        for A in fields:
+            bad = torch.maximum(bad, (~torch.isfinite(A)).flatten(1).any(1).to(torch.int32))
+        return bad.cpu().numpy() > 0
+    return torch.stack([torch.isfinite(A).all().logical_not() for A in fields]).cpu().numpy()
+
+
+def in_turns(torch, fns, reps: int, turns: int = 3) -> list[list[float]]:
+    """ms per call of each of ``fns`` (CUDA events), ``turns`` times in
+    turns (A, B, A, B, ...), so that both see the same card and host."""
+    out = [[] for _ in fns]
+    for _ in range(turns):
+        for ms, fn in zip(out, fns):
+            ms.append(cuda_ms(torch, fn, reps=reps))
+    return out
 
 
 def ring_equal(torch, out, inp) -> bool:
@@ -593,6 +648,7 @@ def main() -> None:
     phase8(torch, igg, modules, reset_counts, counts, card, records)
     phase9(torch, igg, reset_counts, counts, card)
     phase10(torch, igg, reset_counts, counts, card)
+    phase11(torch, igg, reset_counts, counts, card)
 
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
@@ -1149,7 +1205,13 @@ def phase10(torch, igg, reset_counts, counts, card) -> None:
         for _ in range(3):
             plain_ms.append(cuda_ms(torch, plain, reps=2, warmup=1) / calls)
             idle_ms.append(cuda_ms(torch, idle, reps=2, warmup=1) / calls)
-        probe_ms = cuda_ms(torch, lambda: res.check_fields(*got), reps=10)
+        probe_ms, flag_ms, mask_ms = in_turns(torch, [
+            lambda: res.check_fields(*got),
+            lambda: torch.stack([res.nonfinite_flags(A) for A in got]).cpu(),
+            lambda: mask_nonfinite(torch, got, False),
+        ], reps=10)
+        if res.check_fields(*got).bad_blocks or mask_nonfinite(torch, got, False).any():
+            fail("the finite probe flags the clean state")
         redone = step(*state0)
         compare_ms = cuda_ms(torch, lambda: audit_fields(redone, redone), reps=10)
         replay_ms = cuda_ms(torch, lambda: step(*res.snapshot_state(state0)), reps=10)
@@ -1164,7 +1226,9 @@ def phase10(torch, igg, reset_counts, counts, card) -> None:
         restore_s = time.perf_counter() - t0
         print(f"phase 10a: ms per call of 20 calls, interleaved: plain loop {plain_ms!r}, "
               f"guarded loop with every hook off {idle_ms!r} {card}")
-        print(f"phase 10a: one check_fields probe of T, Cp {probe_ms!r} ms; one audit = one "
+        print(f"phase 10a: one check_fields probe of T, Cp {probe_ms!r} ms; in turns with it, "
+              f"its flags and one host read {flag_ms!r} ms, the mask form's {mask_ms!r} ms; "
+              f"one audit = one "
               f"replayed call from a snapshot {replay_ms!r} ms + the word compare "
               f"{compare_ms!r} ms {card}")
         print(f"phase 10a: save_checkpoint of the {mib!r} MiB state {save_s * 1e3!r} ms "
@@ -1279,6 +1343,360 @@ def phase10(torch, igg, reset_counts, counts, card) -> None:
                         or not all(bool(torch.isfinite(a).all()) for a in out):
                     fail(f"{label} pipelined={pipelined}: audits, launches {c} or finiteness")
             igg.finalize_global_grid()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase11(torch, igg, reset_counts, counts, card) -> None:
+    """Phase 11: serving (``serving.ServingLoop``, ``serving.FrontDoor``)
+    over the batched kernels (see the module docstring)."""
+    import urllib.request
+
+    import numpy as np
+
+    from implicitglobalgrid_tpu_torch.models import _batched, acoustic3d, diffusion3d
+    from implicitglobalgrid_tpu_torch.models import porous_convection3d
+    from implicitglobalgrid_tpu_torch.serving import FrontDoor, Request, ServingLoop
+    from implicitglobalgrid_tpu_torch.serving import frontdoor as fdm
+    from implicitglobalgrid_tpu_torch.utils import resilience as res
+    from implicitglobalgrid_tpu_torch.utils import telemetry as tele
+
+    n, f32 = 256, torch.float32
+    ov = lambda o: dict(overlapx=o, overlapy=o, overlapz=o)  # noqa: E731
+    xyz = dict(periodx=1, periody=1, periodz=1)
+    work = Path(tempfile.mkdtemp(prefix="igg_phase11_"))
+    #: 11a's requests: (ic_scale, budget); budgets 8, 12, 16 admit 2 members mid-flight
+    specs = [(1.0 + 0.1 * i, (8, 12, 16)[i % 3]) for i in range(6)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def member(model, scale, **kw):
+        return model.setup(n, n, n, init_grid=False, dtype=f32, ic_scale=scale, **kw)[0]
+
+    def drive(loop):
+        """Rounds until the pool drains; the wall ms of each ``run_round``."""
+        walls = []
+        while loop.queue or loop.active_members:
+            t0 = time.perf_counter()
+            loop.run_round()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if loop.rounds > 100:
+                fail(f"{loop.model_name} pool did not drain in 100 rounds")
+        return walls
+
+    def pool_intact(step, pool, label):
+        """A step must leave its input pool intact (the select and the
+        audit re-use it): one step of a clone, compared bit for bit."""
+        before = tuple(a.clone() for a in pool)
+        step(*pool)
+        torch.cuda.synchronize()
+        if not same(pool, before):
+            fail(f"{label}: the batched step wrote into its input pool")
+
+    def hist(name):
+        h = tele.snapshot()["histograms"].get(name, {})
+        return h.get("p50"), h.get("p99"), h.get("count", 0)
+
+    try:
+        # -- 11a: the diffusion pool ----------------------------------------------
+        _, params = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, **xyz, **ov(8))
+        step_kw = {"fused_k": 4}
+
+        def diffusion_loop(**kw):
+            return ServingLoop(diffusion3d, params, capacity=4, steps_per_round=4,
+                               step_kwargs=step_kw, **kw)
+
+        standalone = {}
+        for scale, budget in specs:
+            standalone[scale, budget] = diffusion3d.make_multi_step(params, budget, fused_k=4)(
+                *member(diffusion3d, scale))
+        loop = diffusion_loop()
+        ids = {loop.submit(Request(state=member(diffusion3d, s), max_steps=b)): (s, b)
+               for s, b in specs}
+        tele.reset()
+        torch.cuda.synchronize()
+        reset_counts()
+        walls = drive(loop)
+        torch.cuda.synchronize()
+        c = counts()
+        if c["fused_diffusion_steps"] != loop.rounds:
+            fail(f"11a: {loop.rounds} rounds launched {c}, expected one batched launch a round")
+        results_a = {}
+        for m, key in ids.items():
+            r = loop.results[m]
+            if r.status != "completed" or r.steps != key[1] or not same(r.state, standalone[key]):
+                fail(f"11a: member {m} {key}: {r.status} after {r.steps} steps, bit-exact with "
+                     f"its standalone run: {same(r.state, standalone[key]) if r.state else None}")
+            results_a[key] = r.state
+        del standalone
+        t0 = time.perf_counter()
+        want = {key: fdm.state_digest(state) for key, state in results_a.items()}
+        digest_s = (time.perf_counter() - t0) / len(want)
+        p50, p99, cnt = hist("serving.round_seconds")
+        print(f"phase 11a: diffusion 256^3 f32 periodic x/y/z overlap 8, capacity 4, 4 steps a "
+              f"round (fused_k=4), 6 requests (budgets 8/12/16): {loop.rounds} rounds, launches "
+              f"{c} (one batched launch a round); every member completed bit-exact with its "
+              f"standalone make_multi_step(fused_k=4) run; round wall ms {walls!r}; "
+              f"serving.round_seconds p50 {p50!r} s, p99 {p99!r} s over {cnt} rounds; "
+              f"state_digest of one member (T, Cp: gather + sha256) {digest_s!r} s {card}")
+
+        # Steady state at a full pool, and the parts of a round timed alone.
+        loop = diffusion_loop()
+        for s, _ in specs[:4]:
+            loop.submit(Request(state=member(diffusion3d, s), max_steps=10**6))
+        pool = loop._state
+        pool_intact(loop._step, pool, "11a diffusion")
+        for _ in range(3):
+            loop.run_round()
+        tele.reset()
+        torch.cuda.synchronize()
+        reps = 30
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            loop.run_round()
+        round_ms = (time.perf_counter() - t0) * 1e3 / reps
+        p50, p99, _ = hist("serving.round_seconds")
+        pool = loop._state
+        step_ms = cuda_ms(torch, lambda: loop._step(*pool), reps=20)
+        new = loop._step(*pool)
+        partial = np.array([True, True, False, True])
+        select_ms = cuda_ms(torch, lambda: _batched.select_members(partial, new, pool), reps=20)
+        probe_ms, mask_ms = in_turns(torch, [lambda: _batched.check_members_finite(pool),
+                                             lambda: mask_nonfinite(torch, pool, True)], reps=20)
+        if _batched.check_members_finite(pool).any() or mask_nonfinite(torch, pool, True).any():
+            fail("the finite probe flags the clean pool")
+        del new
+        print(f"phase 11a: full pool (B=4) steady state over {reps} rounds: {round_ms!r} ms per "
+              f"round (run_round wall), bare batched step {step_ms!r} ms, loop overhead "
+              f"{round_ms - step_ms!r} ms ({round_ms / step_ms!r}x the step); the select of a "
+              f"partial pool alone {select_ms!r} ms (skipped at a full pool), the finite probe "
+              f"alone {probe_ms!r} ms, in turns with its mask form {mask_ms!r} ms; "
+              f"{16e3 / round_ms!r} member-steps/s served against "
+              f"{16e3 / step_ms!r} by the bare step; serving.round_seconds p50 {p50!r} s, p99 "
+              f"{p99!r} s {card}")
+        del loop, pool
+
+        # -- 11b: guards and the audit ------------------------------------------
+        loop = diffusion_loop(guard_policy="evict")
+        T, Cp = member(diffusion3d, 0.95)
+        T[n // 2, n // 2, n // 2] = float("nan")
+        bad = loop.submit(Request(state=(T, Cp), max_steps=8))
+        ids = {loop.submit(Request(state=member(diffusion3d, s), max_steps=b)): (s, b)
+               for s, b in specs}
+        drive(loop)
+        r = loop.results[bad]
+        ok = all(same(loop.results[m].state, results_a[k]) for m, k in ids.items())
+        print(f"phase 11b: evict: the NaN member {r.status} after {r.steps} steps; the 6 others "
+              f"bit-exact with 11a: {ok}")
+        if r.status != "evicted" or r.state is not None or not ok:
+            fail(f"11b evict: NaN member {r.status}, others bit-exact {ok}")
+
+        key = specs[2]
+        loop = diffusion_loop(guard_policy="rollback")
+        m = loop.submit(Request(state=member(diffusion3d, key[0]), max_steps=key[1]))
+        loop.run_round()
+        T = _batched.member_field(loop._state[0], 0)
+        T[n // 2, n // 2, n // 2] = float("nan")  # a poisoned slot between rounds
+        loop._state[0][0].copy_(T)
+        loop.run_round()
+        rolled = (loop.slots[0].rollbacks, loop.slots[0].steps)
+        drive(loop)
+        r = loop.results[m]
+        ok = r.status == "completed" and same(r.state, results_a[key])
+        print(f"phase 11b: rollback: a poisoned slot after round 1 -> rollbacks, steps "
+              f"{rolled} after round 2; the member {r.status} after {r.steps} steps, bit-exact "
+              f"with 11a: {ok}")
+        if rolled != (1, 4) or not ok:
+            fail(f"11b rollback: {rolled}, completed bit-exact {ok}")
+
+        with fault_env(res, IGG_INTEGRITY_EVERY="1"):
+            tele.reset()
+            loop = diffusion_loop()
+            ids = {loop.submit(Request(state=member(diffusion3d, s), max_steps=b)): (s, b)
+                   for s, b in specs}
+            torch.cuda.synchronize()
+            reset_counts()
+            drive(loop)
+            torch.cuda.synchronize()
+            c = counts()
+            snap = tele.snapshot()["counters"]
+            audits, bad_audits = snap.get("integrity.audits", 0), snap.get(
+                "integrity.audit_mismatches", 0)
+            ok = all(same(loop.results[m].state, results_a[k]) for m, k in ids.items())
+            print(f"phase 11b: IGG_INTEGRITY_EVERY=1: {audits} audits in {loop.rounds} rounds, "
+                  f"{bad_audits} mismatches, launches {c} (committed + re-run); members "
+                  f"bit-exact with 11a: {ok}")
+            if audits != loop.rounds or bad_audits or not ok \
+                    or c["fused_diffusion_steps"] != 2 * loop.rounds:
+                fail(f"11b audit: {audits} audits, {bad_audits} mismatches, launches {c}")
+        del loop
+        igg.finalize_global_grid()
+
+        # -- 11c: the porous pool, then acoustic ---------------------------------
+        pkw = dict(npt=12)
+        _, pparams = porous_convection3d.setup(n, n, n, dtype=f32, quiet=True, periodz=1,
+                                               **ov(14), **pkw)
+        residual = porous_convection3d.make_batched_residual(pparams)
+        one = porous_convection3d.make_multi_step(pparams, 1, fused_k=6)
+        state, r_seq, states = member(porous_convection3d, 1.0, **pkw), [], []
+        for _ in range(6):
+            state = one(*state)
+            states.append(state)
+            r_seq.append(float(residual(*_batched.stack_states([state]))[0]))
+        j = next((j for j in range(2, 6) if r_seq[j] < min(r_seq[:j]) * (1 - 1e-3)), None)
+        if j is None:
+            fail(f"11c: the porous residual did not fall in 6 steps: {r_seq}")
+        tol = (min(r_seq[:j]) * r_seq[j]) ** 0.5
+        conv_state = states[j]
+        done_state = porous_convection3d.make_multi_step(pparams, 2, fused_k=6)(
+            *member(porous_convection3d, 0.8, **pkw))
+        del states
+        loop = ServingLoop(porous_convection3d, pparams, capacity=2, steps_per_round=1,
+                           step_kwargs={"fused_k": 6})
+        mc = loop.submit(Request(state=member(porous_convection3d, 1.0, **pkw), max_steps=50,
+                                 tol=tol))
+        mb = loop.submit(Request(state=member(porous_convection3d, 0.8, **pkw), max_steps=2))
+        pool_intact(loop._step, loop._state, "11c porous")
+        torch.cuda.synchronize()
+        reset_counts()
+        walls = drive(loop)
+        torch.cuda.synchronize()
+        c = counts()
+        rc, rb = loop.results[mc], loop.results[mb]
+        plain = porous_convection3d.make_multi_step(pparams, j + 1, exchange_every=6)(
+            *member(porous_convection3d, 1.0, **pkw))
+        plain_res = float(residual(*_batched.stack_states([plain]))[0])
+        print(f"phase 11c: porous 256^3 f32 npt=12 periodic z overlap 14, capacity 2, 1 step a "
+              f"round (fused_k=6): residuals of the tol member's standalone steps {r_seq!r}, tol "
+              f"{tol!r}; member {mc} {rc.status} after {rc.steps} steps at residual "
+              f"{rc.residual!r} (the standalone fused run's {r_seq[j]!r}, the plain cadence's "
+              f"{plain_res!r}); member {mb} {rb.status} after {rb.steps} steps; launches {c} "
+              f"in {loop.rounds} rounds; round wall ms {walls!r} {card}")
+        if rc.status != "converged" or rc.steps != j + 1 or rc.residual != r_seq[j] \
+                or not same(rc.state, conv_state):
+            fail(f"11c: the tol member {rc.status} after {rc.steps} steps, residual "
+                 f"{rc.residual!r} vs {r_seq[j]!r}")
+        if abs(plain_res - r_seq[j]) > 2e-5 * max(abs(r_seq[j]), 1.0):
+            fail(f"11c: the residual {r_seq[j]!r} disagrees with the plain cadence's {plain_res!r}")
+        if rb.status != "completed" or rb.steps != 2 or not same(rb.state, done_state):
+            fail(f"11c: the budget member {rb.status} after {rb.steps} steps")
+        if c["fused_pt_iterations"] != 2 * loop.rounds:
+            fail(f"11c: launches {c} in {loop.rounds} rounds, expected 2 a round")
+        del loop, plain, conv_state, done_state, rc, rb
+        igg.finalize_global_grid()
+
+        _, aparams = acoustic3d.setup(n, n, n, dtype=f32, quiet=True, periodz=1, **ov(12))
+        loop = ServingLoop(acoustic3d, aparams, capacity=4, steps_per_round=6,
+                           step_kwargs={"fused_k": 6})
+        scales = (1.0, 1.1, 1.2, 1.3)
+        ids = {loop.submit(Request(state=member(acoustic3d, s), max_steps=6)): s for s in scales}
+        pool_intact(loop._step, loop._state, "11c acoustic")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        loop.run_round()
+        wall = (time.perf_counter() - t0) * 1e3
+        c = counts()
+        alone = acoustic3d.make_multi_step(aparams, 6, fused_k=6)
+        ok = all(loop.results[m].status == "completed"
+                 and same(loop.results[m].state, alone(*member(acoustic3d, s)))
+                 for m, s in ids.items())
+        print(f"phase 11c: acoustic 256^3 f32 periodic z overlap 12, capacity 4, one round of 6 "
+              f"steps (fused_k=6): launches {c}; every member completed bit-exact with its "
+              f"standalone run: {ok}; round wall {wall!r} ms {card}")
+        if not ok or c["fused_leapfrog_steps"] != 1:
+            fail(f"11c acoustic: bit-exact {ok}, launches {c}")
+        del loop
+        igg.finalize_global_grid()
+
+        # -- 11d: the front door over HTTP ---------------------------------------
+        del results_a
+
+        def door(capacity, **kw):
+            _, p = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, **xyz, **ov(8))
+            lp = ServingLoop(diffusion3d, p, capacity=capacity, steps_per_round=4,
+                             step_kwargs=step_kw)
+            return lp, FrontDoor(lp, port=0, host="127.0.0.1", setup_kwargs={"dtype": f32},
+                                 checkpoint_dir=str(work / "resize"), **kw)
+
+        def post(fd, scale, budget):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{fd.port}/v1/submit", headers={"Content-Type":
+                                                                  "application/json"},
+                data=json.dumps({"tenant": "chip", "model": "diffusion3d", "params": {
+                    "max_steps": budget, "ic_scale": scale}}).encode())
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return json.loads(r.read())["request_id"]
+
+        def get(fd, rid):
+            with urllib.request.urlopen(f"http://127.0.0.1:{fd.port}/v1/result/{rid}",
+                                        timeout=30) as r:
+                return json.loads(r.read())
+
+        def serve_until_done(fd, rids):
+            for _ in range(60):
+                fd.serve_rounds(max_rounds=1)
+                if all(fd.result_view(rid)["status"] == "done" for rid in rids):
+                    return
+            fail("11d: the front door did not finish its requests in 60 iterations")
+
+        def check_digests(fd, rids, what):
+            for rid, key in zip(rids, specs):
+                view = get(fd, rid)
+                if view["status"] != "done" or view["steps"] != key[1] \
+                        or view["digest"] != want[key]:
+                    fail(f"11d {what}: {rid} {key}: {view}")
+
+        tele.reset()
+        reset_counts()
+        loop, fd = door(4)
+        try:
+            rids = [post(fd, s, b) for s, b in specs]
+            serve_until_done(fd, rids)
+            check_digests(fd, rids, "HTTP")
+        finally:
+            fd.close()
+        c = counts()
+        p50, p99, cnt = hist("frontdoor.request_seconds")
+        print(f"phase 11d: FrontDoor on 127.0.0.1 over the 11a pool: 6 POSTs, serve_rounds, 6 "
+              f"GETs: every digest equals state_digest of 11a's member; launches {c} in "
+              f"{loop.rounds} rounds; request latency p50 {p50!r} s, p99 {p99!r} s over {cnt} "
+              f"requests {card}")
+        if c["fused_diffusion_steps"] != loop.rounds:
+            fail(f"11d: launches {c} in {loop.rounds} rounds")
+        del loop
+        igg.finalize_global_grid()
+
+        loop, fd = door(4)
+        try:
+            rids = [post(fd, s, b) for s, b in specs]
+            fd.serve_rounds(max_rounds=3)
+            live = (loop.active_members, len(loop.queue))
+            t0 = time.perf_counter()
+            fd._execute_resize({"nproc": 1, "capacity": 5, "rung": 1, "reason": "up"})
+            resize_s = time.perf_counter() - t0
+        finally:
+            fd.close()
+        del loop
+        igg.finalize_global_grid()
+        loop, fd = door(5)
+        try:
+            t0 = time.perf_counter()
+            if not fd.elastic_resume():
+                fail("11d: elastic_resume found no checkpoint")
+            resume_s = time.perf_counter() - t0
+            adopted = sorted(s.steps for s in loop.slots if s.active)
+            serve_until_done(fd, rids)
+            check_digests(fd, rids, "resize + elastic_resume")
+        finally:
+            fd.close()
+        print(f"phase 11d: _execute_resize to capacity 5 with {live[0]} members live and "
+              f"{live[1]} queued: {resize_s!r} s; elastic_resume into a fresh loop and door: "
+              f"{resume_s!r} s (members at steps {adopted}); every digest after the resize "
+              f"equals 11a's {card}")
+        del loop
+        igg.finalize_global_grid()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

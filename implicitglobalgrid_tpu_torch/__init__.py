@@ -18,6 +18,10 @@ Resilience (`utils.resilience`, `utils.checkpoint`, the `integrity`
 subpackage): NaN/Inf guards, fault injection, checkpoints in the JAX
 package's on-disk format with elastic restore, and the integrity plane;
 the models' ``run()`` takes the JAX package's resilience knobs.
+
+Serving (`serving`, imported on first use): a slot pool of ensemble
+members over one batched step, admission, autoscaling and an HTTP front
+door.
 """
 
 from .ops.gather import gather
@@ -93,6 +97,7 @@ __all__ = [
     "restore_checkpoint",
     "save_checkpoint",
     "select_device",
+    "serving",
     "set_global_grid",
     "stencil",
     "tic",
@@ -105,3 +110,13 @@ __all__ = [
     "z_g",
     "zeros",
 ]
+
+
+def __getattr__(name):
+    # Lazy: the serving subsystem pulls the models in; importing the package
+    # itself stays light (the JAX package's ``__getattr__``).
+    if name == "serving":
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

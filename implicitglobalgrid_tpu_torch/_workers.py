@@ -73,6 +73,16 @@ Tasks:
   this rank's T as ``<p>T`` (a ``worker_crash`` fault ends the process
   there).
 
+* ``"serving"``: the serving front door over a diffusion pool
+  (`serving.FrontDoor`).  `serving.frontdoor.broadcast_control` of rank
+  0's ``message`` (the others pass None), saved as ``bcast`` (JSON bytes),
+  and of nothing, saved as ``bcast_empty``; then a `ServingLoop`
+  (``capacity``, ``steps_per_round``) behind a door: rank 0 hands each
+  entry of ``specs`` to ``handle_submit``, every rank runs
+  ``serve_rounds(rounds)``, rank 0 saves each request's result view as
+  ``results`` (JSON bytes), then asks for a shutdown and saves the
+  outcome of the next ``serve_rounds`` as ``outcome``.
+
 Run one rank by hand with ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json`` and the environment variables above set.
 """
@@ -180,6 +190,8 @@ def _run(task: dict) -> dict:
     inputs = dict(np.load(workdir / "inputs.npz"))
     if task["kind"] == "resilience":
         return _run_resilience(task, inputs)
+    if task["kind"] == "serving":
+        return _run_serving(task)
     init_global_grid(*task["nxyz"], device="cpu", quiet=True, **task.get("grid", {}))
     try:
         if task["kind"] == "halo":
@@ -483,6 +495,42 @@ def _run_resilience(task: dict, inputs: dict) -> dict:
     if grid_is_initialized():
         finalize_global_grid()
     return out
+
+
+def _run_serving(task: dict) -> dict:
+    """The ``"serving"`` task (see the module docstring)."""
+    import torch
+
+    from . import finalize_global_grid, init_global_grid
+    from .models import diffusion3d
+    from .serving import FrontDoor, ServingLoop
+    from .serving.frontdoor import broadcast_control
+
+    def as_bytes(doc):
+        return np.frombuffer(json.dumps(doc, sort_keys=True).encode(), np.uint8)
+
+    rank = int(os.environ["RANK"])
+    init_global_grid(*task["nxyz"], device="cpu", quiet=True, **task.get("grid", {}))
+    try:
+        out = {"bcast": as_bytes(broadcast_control(task["message"] if rank == 0 else None)),
+               "bcast_empty": as_bytes(broadcast_control(None))}
+        _, params = diffusion3d.setup(*task["nxyz"], init_grid=False, dtype=torch.float64)
+        loop = ServingLoop(diffusion3d, params, capacity=task["capacity"],
+                           steps_per_round=task["steps_per_round"])
+        fd = FrontDoor(loop, port=0, setup_kwargs={"dtype": torch.float64})
+        try:
+            rids = [fd.handle_submit(doc)[1]["request_id"] for doc in task["specs"]] \
+                if rank == 0 else []
+            fd.serve_rounds(max_rounds=task["rounds"])
+            if rank == 0:
+                out["results"] = as_bytes({rid: fd.result_view(rid) for rid in rids})
+                fd.request_shutdown()
+            out["outcome"] = as_bytes(fd.serve_rounds(max_rounds=2))
+        finally:
+            fd.close()
+        return out
+    finally:
+        finalize_global_grid()
 
 
 def main(argv: list[str]) -> int:

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from ..ops import halo as _halo
 from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS
+from ..utils import resilience as _resilience
 
 
 def batch_size(state) -> int:
@@ -150,13 +151,15 @@ def check_members_finite(state) -> np.ndarray:
     """Per-member NaN/Inf probe of a batched state: boolean ``(B,)`` array,
     True where the member holds a non-finite value in any field on any rank.
     One all-reduce of a ``(B,)`` flag vector, so member k's fault never
-    taints the verdict on member j, and every rank takes the same one."""
+    taints the verdict on member j, and every rank takes the same one.
+    Each field is read once (`utils.resilience.nonfinite_flags`; the
+    serving loop probes its whole pool every round)."""
     _grid.check_initialized()
     nb = check_batched(state)
     bad = torch.zeros(nb, dtype=torch.int32, device=state[0].device)
     for A in state:
-        if A.is_floating_point() or A.is_complex():
-            bad = torch.maximum(bad, (~torch.isfinite(A)).flatten(1).any(1).to(torch.int32))
+        flags = _resilience.nonfinite_flags(A, per_member=True)
+        bad = torch.maximum(bad, flags.to(torch.int32))
     return _max_over_ranks(bad).cpu().numpy() > 0
 
 

@@ -215,10 +215,7 @@ def save_checkpoint(
         "crc32": _crc32_file(shard_path),
         "blocks": block_digests,
     }
-    tmp = shard_path + ".crc.json.tmp"
-    with open(tmp, "w") as f:
-        json.dump(sidecar, f)
-    os.replace(tmp, shard_path + ".crc.json")
+    _telemetry.atomic_write_json(shard_path + ".crc.json", sidecar, fsync=False)
 
     _dist.sync_all_processes(gg.device)
     if pid == 0:
@@ -265,10 +262,9 @@ def save_checkpoint(
         gen = _config.generation_env()
         if gen is not None:
             meta["generation"] = gen
-        tmp = os.path.join(tmp_dir, _META + ".tmp")
-        with open(tmp, "w") as f:
-            json.dump(meta, f, indent=1)
-        os.replace(tmp, os.path.join(tmp_dir, _META))
+        _telemetry.atomic_write_json(
+            os.path.join(tmp_dir, _META), meta, fsync=False, indent=1
+        )
         for sc in _glob.glob(os.path.join(tmp_dir, "*.crc.json")):
             try:
                 os.remove(sc)

@@ -27,9 +27,24 @@ and the halo exchange's:
 ``IGG_FENCE_DIR``         directory of the authoritative ``generation.json``
 ``IGG_TELEMETRY``         0 turns the counter/event sink off (default on)
 ``IGG_TELEMETRY_DIR``     event-log directory (unset = no event files)
+``IGG_TELEMETRY_MAX_TENANTS``  cap on distinct per-tenant series (>= 1)
+``IGG_HEARTBEAT_EVERY``   serving-round cadence of the local heartbeat work
+``IGG_SLO_WINDOW_S``      rolling SLO sub-window length in seconds (> 0)
+``IGG_BATCH``             default serving slot-pool capacity (>= 1)
+``IGG_BATCH_ROUND_STEPS`` default steps per serving round (>= 1)
+``IGG_SERVE_PORT``        front-door port (0 = ephemeral)
+``IGG_SERVE_HOST``        front-door bind address (default loopback)
+``IGG_SERVE_MAX_BODY``    front-door request-body bound in bytes
+``IGG_TENANT_QUOTA``      per-tenant token bucket ``RATE[:BURST]``
+``IGG_FRONTDOOR_QUEUE_MAX``  queue-depth backpressure threshold
+``IGG_FRONTDOOR_SLO_P99_S``  round-latency p99 backpressure threshold
+``IGG_AUTOSCALE_QUEUE_HIGH`` queue depth that votes for a scale-up
+``IGG_AUTOSCALE_SUSTAIN`` consecutive verdicts before a resize commits
+``IGG_RESULT_KEEP``       consumed serving results kept (0 = all)
+``IGG_RESULT_TTL_S``      age bound on consumed serving results (> 0)
 ========================  ====================================================
 
-The resilience knobs are read per call, not snapshotted at init; their
+The resilience and serving knobs are read per call, not snapshotted at init; their
 names, validation and messages are the JAX package's
 (``utils/config.py``).
 """
@@ -236,3 +251,121 @@ def telemetry_enabled_env() -> bool:
 def telemetry_dir_env() -> str | None:
     """``IGG_TELEMETRY_DIR``: event-log directory (unset = no files)."""
     return _str_env("IGG_TELEMETRY_DIR")
+
+
+def telemetry_max_tenants_env() -> int | None:
+    """``IGG_TELEMETRY_MAX_TENANTS``: cap on distinct per-tenant counter
+    series (>= 1); overflow folds into ``serving.tenant.__other__.steps``."""
+    return _int_env("IGG_TELEMETRY_MAX_TENANTS", minimum=1)
+
+
+def heartbeat_every_env() -> int | None:
+    """``IGG_HEARTBEAT_EVERY``: heartbeat cadence in steps (serving: in
+    rounds) (>= 0; 0 = off)."""
+    return _int_env("IGG_HEARTBEAT_EVERY", minimum=0)
+
+
+def slo_window_env() -> float | None:
+    """``IGG_SLO_WINDOW_S``: rolling SLO sub-window length in seconds
+    (> 0; unset = the `utils.telemetry.SLO_WINDOW_S_DEFAULT` default)."""
+    return _float_env("IGG_SLO_WINDOW_S", exclusive_minimum=0)
+
+
+# -- Batched serving knobs (read per loop construction) -----------------------
+
+
+def batch_env() -> int | None:
+    """``IGG_BATCH``: default serving slot-pool capacity B (>= 1)."""
+    return _int_env("IGG_BATCH", minimum=1)
+
+
+def batch_round_steps_env() -> int | None:
+    """``IGG_BATCH_ROUND_STEPS``: default steps per serving round (>= 1)."""
+    return _int_env("IGG_BATCH_ROUND_STEPS", minimum=1)
+
+
+# -- Serving front-door knobs (read per construction) -------------------------
+
+
+def serve_port_env() -> int | None:
+    """``IGG_SERVE_PORT``: front-door port (>= 0; 0 = ephemeral).  ``None``
+    = unset — `serving.frontdoor.FrontDoor` falls back to 0 (ephemeral)."""
+    return _int_env("IGG_SERVE_PORT", minimum=0)
+
+
+def serve_host_env() -> str | None:
+    """``IGG_SERVE_HOST``: front-door bind address (default loopback —
+    the consumer falls back to ``127.0.0.1`` when unset)."""
+    return _str_env("IGG_SERVE_HOST")
+
+
+def tenant_quota_env() -> tuple[float, float] | None:
+    """``IGG_TENANT_QUOTA``: per-tenant token-bucket arrival limit as
+    ``(rate_per_s, burst)``, or ``None`` when unset (= unlimited).
+
+    Format ``RATE`` or ``RATE:BURST`` — sustained RATE requests/second per
+    tenant with up to BURST (>= 1; default ``max(1, RATE)``) accumulated.
+    """
+    val = os.environ.get("IGG_TENANT_QUOTA")
+    if val is None or val == "":
+        return None
+    parts = val.split(":")
+    try:
+        if len(parts) not in (1, 2):
+            raise ValueError
+        rate = float(parts[0])
+        burst = float(parts[1]) if len(parts) == 2 else max(1.0, rate)
+    except ValueError:
+        raise ValueError(
+            f"Environment variable IGG_TENANT_QUOTA must be 'RATE' or "
+            f"'RATE:BURST' (decimal requests/second, e.g. '5' or '5:10'), "
+            f"got {val!r}."
+        ) from None
+    if rate <= 0 or burst < 1:
+        raise ValueError(
+            f"Environment variable IGG_TENANT_QUOTA needs RATE > 0 and "
+            f"BURST >= 1, got {val!r}."
+        )
+    return rate, burst
+
+
+def frontdoor_queue_max_env() -> int | None:
+    """``IGG_FRONTDOOR_QUEUE_MAX``: queue-depth backpressure threshold
+    (>= 1; unset = the front door's 4x-capacity default)."""
+    return _int_env("IGG_FRONTDOOR_QUEUE_MAX", minimum=1)
+
+
+def frontdoor_slo_p99_env() -> float | None:
+    """``IGG_FRONTDOOR_SLO_P99_S``: round-latency p99 backpressure
+    threshold in seconds (> 0; unset = no p99 gate)."""
+    return _float_env("IGG_FRONTDOOR_SLO_P99_S", exclusive_minimum=0)
+
+
+def autoscale_queue_high_env() -> int | None:
+    """``IGG_AUTOSCALE_QUEUE_HIGH``: queue depth that votes for a scale-up
+    (>= 1; unset = the pool capacity)."""
+    return _int_env("IGG_AUTOSCALE_QUEUE_HIGH", minimum=1)
+
+
+def autoscale_sustain_env() -> int | None:
+    """``IGG_AUTOSCALE_SUSTAIN``: consecutive non-hold autoscaler verdicts
+    before a resize commits (>= 1, default 2)."""
+    return _int_env("IGG_AUTOSCALE_SUSTAIN", minimum=1)
+
+
+def serve_max_body_env() -> int | None:
+    """``IGG_SERVE_MAX_BODY``: front-door request-body bound in bytes
+    (>= 1; unset = the 1 MiB default, `serving.frontdoor.MAX_BODY_DEFAULT`)."""
+    return _int_env("IGG_SERVE_MAX_BODY", minimum=1)
+
+
+def result_keep_env() -> int | None:
+    """``IGG_RESULT_KEEP``: retired-result retention depth (>= 0;
+    0/unset = keep every result)."""
+    return _int_env("IGG_RESULT_KEEP", minimum=0)
+
+
+def result_ttl_env() -> float | None:
+    """``IGG_RESULT_TTL_S``: age bound in seconds on consumed results
+    (> 0; unset = no TTL)."""
+    return _float_env("IGG_RESULT_TTL_S", exclusive_minimum=0)

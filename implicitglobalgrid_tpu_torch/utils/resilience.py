@@ -341,12 +341,22 @@ def _field_names(names, n: int) -> tuple[str, ...]:
     return names
 
 
-def _nonfinite_flag(A):
-    """0-d bool tensor: ``A`` holds a NaN or an Inf (never for integer or
-    bool fields, which cannot)."""
-    if A.is_floating_point() or A.is_complex():
-        return torch.isfinite(A).all().logical_not()
-    return torch.zeros((), dtype=torch.bool, device=A.device)
+def nonfinite_flags(A, *, per_member: bool = False):
+    """Bool tensor: ``A`` holds a NaN or an Inf; 0-d, or with
+    ``per_member`` one flag per index of the leading (ensemble) axis.
+
+    One read of ``A``: a set of values is finite exactly when its minimum
+    and maximum are (NaN propagates through both, +Inf is the maximum,
+    -Inf the minimum), so one `torch.aminmax` pass decides it and no mask
+    the size of the field is written.  Integer and bool fields, which
+    cannot hold either, are never flagged."""
+    shape = (A.shape[0],) if per_member else ()
+    if A.is_complex():
+        A = torch.view_as_real(A)
+    if not A.is_floating_point() or A.numel() == 0:
+        return torch.zeros(shape, dtype=torch.bool, device=A.device)
+    lo, hi = torch.aminmax(A.flatten(1), dim=1) if per_member else torch.aminmax(A)
+    return ~(torch.isfinite(lo) & torch.isfinite(hi))
 
 
 def check_fields(*fields, names: Sequence[str] | None = None) -> FieldReport:
@@ -364,7 +374,7 @@ def check_fields(*fields, names: Sequence[str] | None = None) -> FieldReport:
     if not fields:
         raise ValueError("check_fields requires at least one field.")
     names = _field_names(names, len(fields))
-    flags = [_nonfinite_flag(A) for A in fields]
+    flags = [nonfinite_flags(A) for A in fields]
     return FieldReport(names=names, bad_blocks=_block_flags_report(fields, flags, names))
 
 

@@ -18,7 +18,6 @@ import implicitglobalgrid_tpu_torch as tigg
 #: with the ROADMAP Queue A item (or leftover) that brings each.
 NOT_YET_PORTED = {
     "profile_trace": "14",
-    "serving": "13",
     **dict.fromkeys(("telemetry", "telemetry_snapshot", "dump_metrics", "tracing",
                      "trace_span", "dump_trace", "liveplane", "profiling", "supervisor",
                      "fleet"), "14"),

@@ -243,6 +243,31 @@ def test_check_fields_all_finite_and_integer_fields():
         tigg.check_fields()
 
 
+@pytest.mark.parametrize(
+    "dtype",
+    [torch.float16, torch.bfloat16, torch.float32, torch.float64, torch.complex128,
+     torch.int32, torch.bool],
+)
+def test_nonfinite_flags_equal_the_mask_form(dtype):
+    """The one-pass probe that `check_fields` and `check_members_finite`
+    share gives the verdict of a full ``isfinite`` mask, per field and per
+    member, for NaN, +Inf and -Inf alike."""
+    rng = np.random.default_rng(7)
+    A = torch.from_numpy(rng.standard_normal((4, 3, 5, 6))).to(dtype)
+    cases = [A]
+    if dtype.is_floating_point or dtype.is_complex:
+        for k, bad in enumerate((float("nan"), float("inf"), -float("inf"))):
+            B = A.clone()
+            B[k + 1, 2, 1, k] = bad
+            cases.append(B)
+    for B in cases:
+        mask = ~torch.isfinite(B)
+        assert bool(res.nonfinite_flags(B)) == bool(mask.any())
+        assert res.nonfinite_flags(B, per_member=True).tolist() == mask.flatten(1).any(1).tolist()
+    assert not bool(res.nonfinite_flags(A[:0]))
+    assert res.nonfinite_flags(A[:, :0], per_member=True).tolist() == [False] * 4
+
+
 def _as_block(coords, dims):
     """Make the one-process grid claim block ``coords`` of ``dims`` (the
     report's coordinates without spawning ranks)."""
