@@ -160,12 +160,46 @@ and then prints no result line):
    ``elastic_resume`` into a fresh loop and door: the same digests, and
    both times.
 
+   A POST that the step-stall rule refuses with 429 ``slo`` (the newest
+   progress record is the previous pool's last round, older than the rule's
+   1 s floor: the JAX package's semantics) is posted again after one serving
+   iteration of the door; any other refusal fails.
+
+12. The host planes (``utils.telemetry``, ``utils.tracing``,
+   ``utils.liveplane``) at their defaults over the main paths.  (a) Each
+   model's ``run()`` at its main config (diffusion 256^3 periodic x/y/z
+   overlap 8, nt=16, ``fused_k=4``; acoustic periodic z overlap 12, nt=24,
+   ``fused_k=6``; porous npt=12 periodic z overlap 14, nt=2, ``fused_k=6``):
+   ms per ``run()`` with ``IGG_TELEMETRY=0`` and with telemetry on, in turns;
+   then one run under a temporary ``IGG_TELEMETRY_DIR`` with
+   ``IGG_HEARTBEAT_EVERY`` at the steps of a loop call: ``<model>.steps``
+   and the ``step_seconds`` count equal nt, the events are ``run.start``,
+   nt/every heartbeats and ``run.complete``, the launches equal the
+   ``IGG_TELEMETRY=0`` run's and the result is bit for bit; the step loop's
+   ``T_eff`` beside the CUDA-event one of phases 3, 5 and 6.  (b)
+   ``dump_trace`` of those runs is a valid Chrome trace with one ``igg.step``
+   span per loop call and the halo spans; one POST with a ``traceparent``
+   through a ``FrontDoor`` over 11a's pool: its request tree holds the door's
+   spans, the rounds, the halo exchanges and the digest, and its critical
+   path is printed; phase 10c's ``bit_flip`` under ``integrity_every=1``
+   writes ``flight_0.json``, whose last bundle names the audit's detector and
+   step and holds the open ``igg.step`` span.  (c) A pool at 11a's config
+   under ``IGG_METRICS_PORT=0`` and ``IGG_HEARTBEAT_EVERY=1``: ``/metrics``
+   and ``/healthz`` over HTTP from the rank's server; then the stall drill
+   (``stall:step3`` wedges the serving thread for ``STALL_S``): a POST during
+   the stall is refused 429 ``slo`` by the critical step-stall rule, the
+   next is admitted, one ``alert.step_stall`` event; every alert fired in
+   phases 10-12 is printed.  Events, traces and flight bundles go to a
+   temporary directory that the phase removes, and every variable it sets is
+   restored.
+
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 and
 the main path's k; phase 3 also times the width-4 exchange of T.
 Every main path, phase 11's pools included, runs with every launch count
-set to 0 just before it and read just after.  Then one JSON line with every kernel's launches, error and
+set to 0 just before it and read just after.  Then the script's wall time,
+one JSON line with every kernel's launches, error and
 times (kernel, plain version, bound from the card's published HBM rate and
 float32 peak), and as the last line ``{"ok": true, "device": {...}}``.
 Every time is taken with CUDA events after a warm-up and printed beside the
@@ -207,6 +241,11 @@ KERNELS = {
     "fused_pt_iterations": ("fused_pt", "implicitglobalgrid_tpu/ops/pallas_pt.py:131"),
 }
 SOURCES = tuple(src for src, _ in KERNELS.values())
+
+#: the phase running now, and every live-plane alert fired since phase 10
+#: with the phase it fired in
+PHASE = ["1"]
+ALERTS: list = []
 
 
 def fail(msg: str) -> None:
@@ -277,6 +316,7 @@ def nbytes(*tensors) -> int:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not (ROOT / "implicitglobalgrid_tpu_torch" / "__init__.py").is_file():
         fail(f"{ROOT} holds no implicitglobalgrid_tpu_torch package: run from a checkout")
     import torch
@@ -456,6 +496,7 @@ def main() -> None:
     plain_step_ms = cuda_ms(torch, lambda: plain(T0, Cp), reps=2, warmup=1) / nsteps
     teff = 2 * nbytes(T0) / (step_ms * 1e-3) / 1e9
     plain_teff = 2 * nbytes(T0) / (plain_step_ms * 1e-3) / 1e9
+    main_teff = {"diffusion3d": teff}  # phase 12a prints the step loop's beside these
     buf = T0.clone()
     exchange_ms = cuda_ms(torch, lambda: igg.update_halo(buf, width=k), reps=10)
     del buf
@@ -545,6 +586,7 @@ def main() -> None:
     plain_step_ms = cuda_ms(torch, lambda: plain(*state), reps=2, warmup=1) / nsteps
     teff = 2 * nbytes(*state) / (step_ms * 1e-3) / 1e9
     plain_teff = 2 * nbytes(*state) / (plain_step_ms * 1e-3) / 1e9
+    main_teff["acoustic3d"] = teff
     bufs = [a.clone() for a in state]
     exchange_ms = cuda_ms(torch, lambda: igg.update_halo(*bufs, width=k), reps=10)
     del bufs
@@ -611,6 +653,7 @@ def main() -> None:
               f"T_eff {teff!r} GB/s, PT-loop {pt_gbs!r} GB/s (4 PT fields in+out per iteration); "
               f"plain cadence exchange_every=6 {plain_step_ms!r} ms/step {card}")
         if main:
+            main_teff["porous_convection3d"] = teff
             T, *s = state
             p = params
             co = (p.theta_q, 1.0 / p.dx, 1.0 / p.dy, 1.0 / p.dz, p.Ra * p.lam_T, p.beta_p)
@@ -647,9 +690,19 @@ def main() -> None:
     phase7(torch, igg, modules, reset_counts, counts, card)
     phase8(torch, igg, modules, reset_counts, counts, card, records)
     phase9(torch, igg, reset_counts, counts, card)
-    phase10(torch, igg, reset_counts, counts, card)
-    phase11(torch, igg, reset_counts, counts, card)
+    # Every alert the live plane's rule engine fires from here on, with the
+    # phase it fired in (phase 12c prints them).
+    from implicitglobalgrid_tpu_torch.utils import liveplane
 
+    liveplane.subscribe(lambda alert: ALERTS.append((PHASE[0], alert)))
+    PHASE[0] = "10"
+    phase10(torch, igg, reset_counts, counts, card)
+    PHASE[0] = "11"
+    phase11(torch, igg, reset_counts, counts, card)
+    PHASE[0] = "12"
+    phase12(torch, igg, reset_counts, counts, card, main_teff)
+
+    print(f"chip_smoke: phases 1-12 passed in {time.perf_counter() - t_start!r} s {card}")
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1350,6 +1403,7 @@ def phase10(torch, igg, reset_counts, counts, card) -> None:
 def phase11(torch, igg, reset_counts, counts, card) -> None:
     """Phase 11: serving (``serving.ServingLoop``, ``serving.FrontDoor``)
     over the batched kernels (see the module docstring)."""
+    import urllib.error
     import urllib.request
 
     import numpy as np
@@ -1357,7 +1411,9 @@ def phase11(torch, igg, reset_counts, counts, card) -> None:
     from implicitglobalgrid_tpu_torch.models import _batched, acoustic3d, diffusion3d
     from implicitglobalgrid_tpu_torch.models import porous_convection3d
     from implicitglobalgrid_tpu_torch.serving import FrontDoor, Request, ServingLoop
+    from implicitglobalgrid_tpu_torch.serving import admission as adm
     from implicitglobalgrid_tpu_torch.serving import frontdoor as fdm
+    from implicitglobalgrid_tpu_torch.utils import liveplane
     from implicitglobalgrid_tpu_torch.utils import resilience as res
     from implicitglobalgrid_tpu_torch.utils import telemetry as tele
 
@@ -1620,14 +1676,38 @@ def phase11(torch, igg, reset_counts, counts, card) -> None:
             return lp, FrontDoor(lp, port=0, host="127.0.0.1", setup_kwargs={"dtype": f32},
                                  checkpoint_dir=str(work / "resize"), **kw)
 
+        refusals = []
+
         def post(fd, scale, budget):
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{fd.port}/v1/submit", headers={"Content-Type":
-                                                                  "application/json"},
-                data=json.dumps({"tenant": "chip", "model": "diffusion3d", "params": {
-                    "max_steps": budget, "ic_scale": scale}}).encode())
-            with urllib.request.urlopen(req, timeout=30) as r:
-                return json.loads(r.read())["request_id"]
+            """POST one request.  The front door keeps the JAX package's
+            step-stall rule (critical, 1 s floor) and ticks it at every
+            admission view: when the newest progress record is a PREVIOUS
+            pool's last round, older than the deadline (its final digests,
+            the GETs and this pool's set-up came after it), the JAX
+            semantics refuse the POST with 429 ``slo``.  The refusal must be
+            exactly that; the client then waits, as a client does on
+            ``Retry-After``, while the door's serving thread runs one
+            iteration (idle: it marks the pool's progress done, which clears
+            the rule at the next view), and posts again."""
+            data = json.dumps({"tenant": "chip", "model": "diffusion3d", "params": {
+                "max_steps": budget, "ic_scale": scale}}).encode()
+            for _ in range(2):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{fd.port}/v1/submit",
+                    headers={"Content-Type": "application/json"}, data=data)
+                try:
+                    with urllib.request.urlopen(req, timeout=30) as r:
+                        return json.loads(r.read())["request_id"]
+                except urllib.error.HTTPError as e:
+                    doc = json.loads(e.read() or b"{}")
+                    stall = [a for a in liveplane.get_engine().active_alerts()
+                             if a["rule"] == "step_stall"]
+                    if e.code != 429 or doc.get("reason") != "slo" or not stall:
+                        fail(f"11d: POST refused {e.code} {doc} with no step_stall alert active")
+                    refusals.append(stall[0]["evidence"])
+                fd.serve_rounds(max_rounds=1)
+                time.sleep(2 * adm.VIEW_TTL_S)  # past the admission view's cache
+            fail("11d: a POST was refused again after the door's serving iteration")
 
         def get(fd, rid):
             with urllib.request.urlopen(f"http://127.0.0.1:{fd.port}/v1/result/{rid}",
@@ -1695,11 +1775,273 @@ def phase11(torch, igg, reset_counts, counts, card) -> None:
               f"{live[1]} queued: {resize_s!r} s; elastic_resume into a fresh loop and door: "
               f"{resume_s!r} s (members at steps {adopted}); every digest after the resize "
               f"equals 11a's {card}")
+        print(f"phase 11d: POSTs refused 429 slo by the step_stall rule (then admitted after "
+              f"the door's serving iteration): {len(refusals)}; evidence {refusals}")
         del loop
         igg.finalize_global_grid()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+
+
+def phase12(torch, igg, reset_counts, counts, card, main_teff) -> None:
+    """Phase 12: the host planes (step telemetry, spans and the flight
+    recorder, the live plane) over the main paths (see the module
+    docstring)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from implicitglobalgrid_tpu_torch.integrity import IntegrityError
+    from implicitglobalgrid_tpu_torch.models import acoustic3d, diffusion3d, porous_convection3d
+    from implicitglobalgrid_tpu_torch.serving import FrontDoor, ServingLoop
+    from implicitglobalgrid_tpu_torch.serving import admission as adm
+    from implicitglobalgrid_tpu_torch.utils import liveplane, tracing
+    from implicitglobalgrid_tpu_torch.utils import resilience as res
+    from implicitglobalgrid_tpu_torch.utils import telemetry as tele
+
+    n, f32 = 256, torch.float32
+    ov = lambda o: dict(overlapx=o, overlapy=o, overlapz=o)  # noqa: E731
+    xyz = dict(periodx=1, periody=1, periodz=1)
+    #: (model name, module, run kwargs, nt, kernel, launches, steps a loop call)
+    runs = [
+        ("diffusion3d", diffusion3d, dict(fused_k=4, **xyz, **ov(8)), 16,
+         "fused_diffusion_steps", 4, 4),
+        ("acoustic3d", acoustic3d, dict(fused_k=6, periodz=1, **ov(12)), 24,
+         "fused_leapfrog_steps", 4, 6),
+        ("porous_convection3d", porous_convection3d,
+         dict(npt=12, fused_k=6, periodz=1, **ov(14)), 2, "fused_pt_iterations", 4, 1),
+    ]
+    work = Path(tempfile.mkdtemp(prefix="igg_phase12_"))
+
+    def run(model, kw, nt, **env):
+        with fault_env(res, **env):
+            return model.run(nt, n, n, n, dtype=f32, quiet=True, **kw)
+
+    def http(port, path, doc=None, headers=None):
+        data = None if doc is None else json.dumps(doc).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                     headers={"Content-Type": "application/json",
+                                              **(headers or {})})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, r.read(), dict(r.headers)
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), dict(e.headers)
+
+    def pool():
+        _, params = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, **xyz, **ov(8))
+        loop = ServingLoop(diffusion3d, params, capacity=4, steps_per_round=4,
+                           step_kwargs={"fused_k": 4})
+        return loop, FrontDoor(loop, port=0, host="127.0.0.1", setup_kwargs={"dtype": f32})
+
+    try:
+        # -- 12a: step telemetry over each model's run() --------------------------
+        for name, model, kw, nt, kernel, launches, per_call in runs:
+            tele.reset()
+            off_ms, on_ms = in_turns(torch, [lambda: run(model, kw, nt, IGG_TELEMETRY="0"),
+                                             lambda: run(model, kw, nt)], reps=2)
+            teff = tele.snapshot()["histograms"][f"{name}.t_eff_gbs"]
+            print(f"phase 12a: {name} 256^3 f32 run({nt}, {kw}): ms per run() in turns, "
+                  f"IGG_TELEMETRY=0 {off_ms!r}, telemetry on (defaults) {on_ms!r}; the on "
+                  f"runs' step loop T_eff (host time per step, no sync, no heartbeat) p50 "
+                  f"{teff['p50']!r} GB/s over {teff['count']} steps, the CUDA-event T_eff of "
+                  f"phases 3/5/6 {main_teff[name]!r} GB/s {card}")
+        tracing.reset()
+        for name, model, kw, nt, kernel, launches, per_call in runs:
+            tdir = work / name
+            tele.reset()
+            reset_counts()
+            off = run(model, kw, nt, IGG_TELEMETRY="0")
+            c_off = counts()
+            reset_counts()
+            t0 = time.perf_counter()
+            on = run(model, kw, nt, IGG_TELEMETRY_DIR=str(tdir),
+                     IGG_HEARTBEAT_EVERY=str(per_call))
+            on_s = time.perf_counter() - t0
+            c_on = counts()
+            snap = tele.snapshot()
+            kinds = [e["type"] for e in tele.read_events(tdir / "events.jsonl")
+                     if e["type"] in ("run.start", "heartbeat", "run.complete")]
+            steps = snap["counters"].get(f"{name}.steps")
+            step_s = snap["histograms"][f"{name}.step_seconds"]
+            teff = snap["histograms"][f"{name}.t_eff_gbs"]
+            same = torch.equal(on, off)
+            print(f"phase 12a: {name} checked run, IGG_HEARTBEAT_EVERY={per_call}: "
+                  f"{on_s * 1e3!r} ms; {name}.steps {steps}, step_seconds count "
+                  f"{step_s['count']}, events {kinds.count('run.start')} run.start, "
+                  f"{kinds.count('heartbeat')} heartbeat, {kinds.count('run.complete')} "
+                  f"run.complete; launches {c_on} (IGG_TELEMETRY=0: {c_off}); bit-identical to "
+                  f"IGG_TELEMETRY=0: {same} {card}")
+            print(f"phase 12a: {name} checked run's step loop T_eff (a heartbeat each call) "
+                  f"p50 {teff['p50']!r} GB/s, min {teff['min']!r}, max {teff['max']!r}; "
+                  f"step_seconds p50 {step_s['p50']!r} s {card}")
+            want_kinds = ["run.start"] + ["heartbeat"] * (nt // per_call) + ["run.complete"]
+            if steps != nt or step_s["count"] != nt or kinds != want_kinds or not same \
+                    or c_on != c_off or c_on[kernel] != launches:
+                fail(f"12a: {name}: steps {steps}, step_seconds {step_s['count']}, events "
+                     f"{kinds}, launches {c_on} vs {c_off}, bit-identical {same}")
+            del on, off
+
+        # -- 12b: spans, a request trace, the flight recorder -------------------
+        path = tracing.dump_trace(work / "trace")
+        doc = tracing.merge_trace_files([path])
+        problems = tracing.validate_chrome_trace(doc)
+        xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+        per_model = {}
+        for name, model, kw, nt, kernel, launches, per_call in runs:
+            per_model[name] = [e["args"]["step"] for e in xs
+                               if e["name"] == "igg.step" and e["args"]["model"] == name]
+            if per_model[name] != list(range(per_call, nt + 1, per_call)):
+                fail(f"12b: {name}'s igg.step spans end on steps {per_model[name]}")
+        names = sorted({e["name"] for e in xs})
+        halo = sum(e["name"] == "igg_halo_exchange" for e in xs)
+        print(f"phase 12b: dump_trace of 12a's three checked runs: a valid Chrome trace "
+              f"({len(xs)} spans, problems {problems}); igg.step spans (one a loop call, tagged "
+              f"with the step it ends on) {per_model}; {halo} igg_halo_exchange spans; span "
+              f"names {names}")
+        if problems or not halo:
+            fail(f"12b: trace problems {problems}, {halo} halo spans")
+
+        tele.reset()
+        tracing.reset()
+        tid, sid = "12b0" * 8, "b0b1b2b3b4b5b6b7"
+        loop, fd = pool()
+        try:
+            code, body, hdrs = http(fd.port, "/v1/submit", {
+                "tenant": "chip", "model": "diffusion3d",
+                "params": {"max_steps": 8, "ic_scale": 1.2}},
+                headers={"traceparent": f"00-{tid}-{sid}-01"})
+            if code != 202:
+                fail(f"12b: the traced POST was refused: {code} {body}")
+            rid = json.loads(body)["request_id"]
+            reset_counts()
+            for _ in range(10):
+                fd.serve_rounds(max_rounds=1)
+                if fd.result_view(rid)["status"] == "done":
+                    break
+            c = counts()
+        finally:
+            fd.close()
+        tree = tracing.request_tree([tracing._load_rank_trace(tracing.dump_trace(work / "req"))],
+                                    tid)
+        flat = []
+
+        def walk(nodes):
+            for node in nodes:
+                flat.append(node)
+                walk(node["children"])
+
+        walk(tree["roots"])
+        got = {node["name"] for node in flat}
+        need = {"igg.frontdoor.request", "igg.frontdoor.submit", "igg.frontdoor.admit",
+                "igg.serving.admission", "igg.serving.round", "igg_halo_exchange",
+                "igg.frontdoor.digest"}
+        cp = tracing.critical_path(tree)
+        seg = {k: v["s"] for k, v in cp["segments"].items()}
+        digest_s = sum(node["dur_s"] for node in flat if node["name"] == "igg.frontdoor.digest")
+        print(f"phase 12b: one POST with a traceparent through a FrontDoor over 11a's pool: "
+              f"{loop.rounds} rounds, launches {c}; request tree of trace {tid}: {tree['spans']} "
+              f"spans, {sorted(got)}, incomplete {tree['incomplete']}")
+        print(f"phase 12b: the request's critical path: total {cp['total_s']!r} s; queue wait "
+              f"{seg['queue_wait']!r} s, admission {seg['admission']!r} s, rounds "
+              f"{seg['rounds']!r} s, halo exchange {seg['exchange']!r} s, other "
+              f"{seg['other']!r} s, of which its digest span {digest_s!r} s {card}")
+        if not need <= got or tree["incomplete"] or c["fused_diffusion_steps"] != loop.rounds:
+            fail(f"12b: the request tree lacks {need - got} (or launches {c})")
+        del loop
+        igg.finalize_global_grid()
+
+        (T0, Cp), params = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, **xyz, **ov(8))
+        step = diffusion3d.make_multi_step(params, 4, fused_k=4)
+        fdir = work / "flight"
+        caught = None
+        with fault_env(res, IGG_FAULT_INJECT="bit_flip:step2:T", IGG_TELEMETRY_DIR=str(fdir)):
+            try:
+                res.guarded_time_loop(step, (T0, Cp), 3, model="diffusion3d",
+                                      guard=res.RunGuard(integrity_every=1, names=("T", "Cp")))
+            except IntegrityError as e:
+                caught = e
+        if caught is None:
+            fail("12b: bit_flip:step2:T passed the shadow audit")
+        bundle = tracing.read_flight_bundles(fdir / "flight_0.json")[-1]
+        open_ = [(s["name"], s.get("args")) for s in bundle["spans"] if s.get("open")]
+        print(f"phase 12b: bit_flip:step2:T under integrity_every=1 -> IntegrityError "
+              f"({caught.detector}, step {caught.step}); flight_0.json's last bundle: reason "
+              f"{bundle['reason']}, info {bundle['info']}, open spans {open_}, "
+              f"{len(bundle['spans'])} spans, {len(bundle['metrics']['counters'])} counters")
+        if bundle["reason"] != "sdc" or bundle["info"].get("detector") != caught.detector \
+                or bundle["info"].get("step") != caught.step \
+                or ("igg.step", {"model": "diffusion3d", "step": caught.step}) not in open_:
+            fail("12b: the flight bundle does not name the IntegrityError's audit and step")
+        igg.finalize_global_grid()
+        del T0, Cp, step
+
+        # -- 12c: the live plane, and the step-stall drill ------------------------
+        tele.reset()
+        ldir = work / "live"
+        verdicts = []
+        with fault_env(res, IGG_METRICS_PORT="0", IGG_HEARTBEAT_EVERY="1",
+                       IGG_TELEMETRY_DIR=str(ldir), IGG_FAULT_INJECT="stall:step3"):
+            loop, fd = pool()
+            port = liveplane.server_port()
+
+            def post():
+                code, body, _ = http(fd.port, "/v1/submit", {
+                    "tenant": "chip", "model": "diffusion3d", "params": {"max_steps": 64}})
+                verdicts.append((code, json.loads(body).get("reason")))
+
+            try:
+                if port is None:
+                    fail("12c: IGG_METRICS_PORT=0 brought up no scrape server")
+                post()
+                fd.serve_rounds(max_rounds=3)
+                metrics = http(port, "/metrics")[1].decode()
+                health = json.loads(http(port, "/healthz")[1])
+                deadline = liveplane.StepStallRule()._deadline({"snapshot": tele.snapshot()},
+                                                                "serving.round")
+                stalled = threading.Thread(target=fd.serve_rounds, kwargs={"max_rounds": 1},
+                                           daemon=True)
+                t0 = time.perf_counter()
+                stalled.start()
+                while tele.last_progress()["age_s"] < deadline + 0.5 and stalled.is_alive():
+                    time.sleep(0.02)
+                post()
+                during = json.loads(http(port, "/healthz")[1])
+                stalled.join(timeout=120)
+                stall_s = time.perf_counter() - t0
+                time.sleep(2 * adm.VIEW_TTL_S)  # past the admission view's cache
+                post()
+                after = json.loads(http(port, "/healthz")[1])
+            finally:
+                fd.close()
+                liveplane.stop_server()
+        events = tele.read_events(ldir / "events.jsonl")
+        stall_alerts = [e for e in events if e["type"] == "alert.step_stall"]
+        escalations = [e for e in events if e["type"] == "serving.alert_escalation"]
+        print(f"phase 12c: live plane on 127.0.0.1:{port}: /metrics carries "
+              f"serving.round_seconds {'igg_serving_round_seconds' in metrics}; /healthz "
+              f"sections {sorted(health)}, ok {health['ok']}")
+        print(f"phase 12c: stall drill (stall:step3, {res.FaultInjector.STALL_S} s, step-stall "
+              f"deadline {deadline!r} s): verdicts {verdicts}; /healthz during the stall ok "
+              f"{during['ok']}, active {[a['rule'] for a in during['alerts']['active']]}; after "
+              f"ok {after['ok']}; alert.step_stall events {len(stall_alerts)} "
+              f"({[e['evidence'] for e in stall_alerts]}); serving escalations "
+              f"{len(escalations)}; the stalled iteration took {stall_s!r} s {card}")
+        want = [(202, None), (429, "slo"), (202, None)]
+        if "igg_serving_round_seconds" not in metrics \
+                or not {"serving", "frontdoor", "slo"} <= set(health) \
+                or verdicts != want or len(stall_alerts) != 1 or during["ok"] is not False \
+                or after["ok"] is not True:
+            fail(f"12c: the live plane or the stall drill differs: verdicts {verdicts} (want "
+                 f"{want}), {len(stall_alerts)} step_stall events")
+        del loop
+        igg.finalize_global_grid()
+        print(f"phase 12c: alerts fired in phases 10-12: "
+              f"{[(ph, a['rule'], a['severity'], a['source'], a['evidence']) for ph, a in ALERTS]}")
+    finally:
+        tele.reset()  # closes the event logs under the temporary directory
+        shutil.rmtree(work, ignore_errors=True)
 
 if __name__ == "__main__":
     main()

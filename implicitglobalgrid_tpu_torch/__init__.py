@@ -22,6 +22,13 @@ the models' ``run()`` takes the JAX package's resilience knobs.
 Serving (`serving`, imported on first use): a slot pool of ensemble
 members over one batched step, admission, autoscaling and an HTTP front
 door.
+
+Observability: `telemetry` (metrics registry, event log, the models' step
+telemetry; `telemetry_snapshot`, `dump_metrics`), `tracing` (host spans
+`trace_span`, per-rank dumps `dump_trace` mergeable into one Chrome trace,
+request traces, the skew probe and the flight recorder) and `liveplane`
+(imported on first use: per-rank ``/metrics``/``/healthz``/``/spans``
+endpoints and the anomaly rule engine).
 """
 
 from .ops.gather import gather
@@ -59,8 +66,11 @@ from .utils.fields import (
     ones,
     zeros,
 )
+from .utils import telemetry, tracing
 from .utils.resilience import FieldReport, GuardError, RunGuard, check_fields, watchdog
+from .utils.telemetry import dump_metrics, telemetry_snapshot
 from .utils.tools import nx_g, ny_g, nz_g, x_g, y_g, z_g
+from .utils.tracing import dump_trace, trace_span
 
 __all__ = [
     "FieldReport",
@@ -76,6 +86,8 @@ __all__ = [
     "check_initialized",
     "coord_fields",
     "distributed",
+    "dump_metrics",
+    "dump_trace",
     "finalize_global_grid",
     "from_block_fn",
     "full",
@@ -87,6 +99,7 @@ __all__ = [
     "hide_communication",
     "init_global_grid",
     "latest_checkpoint",
+    "liveplane",
     "local_shape",
     "nx_g",
     "ny_g",
@@ -100,8 +113,12 @@ __all__ = [
     "serving",
     "set_global_grid",
     "stencil",
+    "telemetry",
+    "telemetry_snapshot",
     "tic",
     "toc",
+    "trace_span",
+    "tracing",
     "update_halo",
     "verify_checkpoint",
     "watchdog",
@@ -113,10 +130,15 @@ __all__ = [
 
 
 def __getattr__(name):
-    # Lazy: the serving subsystem pulls the models in; importing the package
-    # itself stays light (the JAX package's ``__getattr__``).
+    # Lazy: the serving subsystem pulls the models in, and the live plane
+    # its HTTP server; importing the package itself stays light (the JAX
+    # package's ``__getattr__``).
     if name == "serving":
         import importlib
 
         return importlib.import_module(f".{name}", __name__)
+    if name == "liveplane":
+        from .utils import liveplane
+
+        return liveplane
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

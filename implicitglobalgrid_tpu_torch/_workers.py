@@ -83,6 +83,15 @@ Tasks:
   ``results`` (JSON bytes), then asks for a shutdown and saves the
   outcome of the next ``serve_rounds`` as ``outcome``.
 
+* ``"tracing"``: the cross-rank half of `utils.tracing` under
+  ``IGG_TELEMETRY_DIR=<workdir>/tele``.  After `init_global_grid` (whose
+  clock sync takes a barrier) each rank saves the sync record as ``sync``
+  (JSON bytes), `all_ranks_value` of ``rank + 1`` as ``vals`` and
+  `skew_probe` of ``step_s[rank]`` as ``probe`` (JSON bytes); then
+  ``diffusion3d.run(nt)`` on the same grid arguments with
+  ``IGG_HEARTBEAT_EVERY=heartbeat`` (the probe rides its heartbeats) and
+  `dump_trace` of its spans; the parent merges ``tele/trace.p*.json``.
+
 Run one rank by hand with ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json`` and the environment variables above set.
 """
@@ -192,6 +201,8 @@ def _run(task: dict) -> dict:
         return _run_resilience(task, inputs)
     if task["kind"] == "serving":
         return _run_serving(task)
+    if task["kind"] == "tracing":
+        return _run_tracing(task)
     init_global_grid(*task["nxyz"], device="cpu", quiet=True, **task.get("grid", {}))
     try:
         if task["kind"] == "halo":
@@ -531,6 +542,33 @@ def _run_serving(task: dict) -> dict:
         return out
     finally:
         finalize_global_grid()
+
+
+def _run_tracing(task: dict) -> dict:
+    """The ``"tracing"`` task (see the module docstring)."""
+    import torch
+
+    from . import finalize_global_grid, init_global_grid
+    from .models import diffusion3d
+    from .utils import tracing
+
+    def as_bytes(doc):
+        return np.frombuffer(json.dumps(doc, sort_keys=True).encode(), np.uint8)
+
+    rank = int(os.environ["RANK"])
+    os.environ["IGG_TELEMETRY_DIR"] = str(Path(task["workdir"]) / "tele")
+    grid = dict(device="cpu", quiet=True, **task.get("grid", {}))
+    init_global_grid(*task["nxyz"], **grid)
+    try:
+        out = {"sync": as_bytes(tracing.clock_sync()),
+               "vals": tracing.all_ranks_value(float(rank + 1)),
+               "probe": as_bytes(tracing.skew_probe(task["step_s"][rank]))}
+    finally:
+        finalize_global_grid()
+    os.environ["IGG_HEARTBEAT_EVERY"] = str(task["heartbeat"])
+    diffusion3d.run(task["nt"], *task["nxyz"], dtype=torch.float64, **grid)
+    tracing.dump_trace()
+    return out
 
 
 def main(argv: list[str]) -> int:

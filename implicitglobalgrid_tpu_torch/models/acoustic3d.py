@@ -344,7 +344,8 @@ def run(nt: int, nx: int = 64, ny: int = 64, nz: int = 64, *,
         finalize: bool = True, guard_every: int | None = None,
         guard_policy: str | None = None, checkpoint_every: int | None = None,
         checkpoint_dir: str | None = None, checkpoint_keep: int | None = None,
-        integrity_every: int | None = None, **setup_kwargs):
+        integrity_every: int | None = None, fused_k: int | None = None,
+        **setup_kwargs):
     """End-to-end run: ``nt`` steps of `make_step`; returns this rank's final
     pressure.
     """
@@ -353,7 +354,9 @@ def run(nt: int, nx: int = 64, ny: int = 64, nz: int = 64, *,
         names=("P", "Vx", "Vy", "Vz"),
         guard_every=guard_every, guard_policy=guard_policy,
         checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
-        checkpoint_keep=checkpoint_keep, integrity_every=integrity_every)
+        checkpoint_keep=checkpoint_keep, integrity_every=integrity_every,
+        model="acoustic3d", stream=4, make_multi_step=make_multi_step, fused_k=fused_k,
+        group=fused_k)
 
 
 run.__doc__ += _common.RUN_HOOKS_DOC

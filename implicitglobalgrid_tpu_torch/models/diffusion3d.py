@@ -327,7 +327,8 @@ def run(nt: int, nx: int = 128, ny: int = 128, nz: int = 128, *,
         finalize: bool = True, guard_every: int | None = None,
         guard_policy: str | None = None, checkpoint_every: int | None = None,
         checkpoint_dir: str | None = None, checkpoint_keep: int | None = None,
-        integrity_every: int | None = None, **setup_kwargs):
+        integrity_every: int | None = None, fused_k: int | None = None,
+        **setup_kwargs):
     """End-to-end run (the reference's ``diffusion3D()`` without
     visualization): ``nt`` steps of `make_step`; returns this rank's final T.
     """
@@ -335,7 +336,9 @@ def run(nt: int, nx: int = 128, ny: int = 128, nz: int = 128, *,
         setup, make_step, nt, (nx, ny, nz), finalize, setup_kwargs, names=("T", "Cp"),
         guard_every=guard_every, guard_policy=guard_policy,
         checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
-        checkpoint_keep=checkpoint_keep, integrity_every=integrity_every)
+        checkpoint_keep=checkpoint_keep, integrity_every=integrity_every,
+        model="diffusion3d", stream=1, make_multi_step=make_multi_step, fused_k=fused_k,
+        group=fused_k)
 
 
 run.__doc__ += _common.RUN_HOOKS_DOC

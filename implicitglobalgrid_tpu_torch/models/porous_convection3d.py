@@ -503,16 +503,21 @@ def run(nt: int, nx: int = 32, ny: int = 32, nz: int = 32, *,
         finalize: bool = True, guard_every: int | None = None,
         guard_policy: str | None = None, checkpoint_every: int | None = None,
         checkpoint_dir: str | None = None, checkpoint_keep: int | None = None,
-        integrity_every: int | None = None, **setup_kwargs):
+        integrity_every: int | None = None, fused_k: int | None = None,
+        **setup_kwargs):
     """End-to-end run: ``nt`` steps of `make_step`; returns this rank's final
-    temperature.
+    temperature.  With ``fused_k=w`` each step runs its PT iterations in
+    kernel chunks of ``w`` (``make_multi_step(params, 1, fused_k=w)``, one
+    step a call).
     """
     return _common.run(
         setup, make_step, nt, (nx, ny, nz), finalize, setup_kwargs,
         names=("T", "Pf", "qDx", "qDy", "qDz"),
         guard_every=guard_every, guard_policy=guard_policy,
         checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
-        checkpoint_keep=checkpoint_keep, integrity_every=integrity_every)
+        checkpoint_keep=checkpoint_keep, integrity_every=integrity_every,
+        model="porous_convection3d", stream=5, make_multi_step=make_multi_step, fused_k=fused_k,
+        group=1)
 
 
 run.__doc__ += _common.RUN_HOOKS_DOC

@@ -18,6 +18,7 @@ import torch.distributed as dist
 
 from ..parallel import grid as _grid
 from ..parallel import topology
+from ..utils import tracing as _tracing
 
 
 def owned_range(c: int, nblocks: int, size: int, ol: int, periodic: bool) -> tuple[int, int]:
@@ -114,6 +115,11 @@ def gather(A, A_global=None, *, root: int = 0, dedup: bool = False,
     ``member`` is rejected: its leading axis would be misread as grid
     dimension x.  Collective: every process must call it.
     """
+    with _tracing.trace_span("igg.gather", root=root, dedup=dedup):
+        return _gather(A, A_global, root=root, dedup=dedup, member=member)
+
+
+def _gather(A, A_global, *, root: int, dedup: bool, member: int | None):
     gg = _grid.global_grid()
     if member is not None:
         if A.dim() <= topology.NDIMS:

@@ -62,7 +62,6 @@ the exchange and its messages are exactly the unchecked ones.
 
 from __future__ import annotations
 
-import time
 from typing import Sequence
 
 import numpy as np
@@ -72,15 +71,13 @@ import torch.distributed as dist
 from ..integrity import transport as _itransport
 from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS, PROC_NULL
+from ..utils import telemetry as _telemetry
+from ..utils import tracing as _tracing
 from ..utils.config import coalesce_env, integrity_enabled_env
 
 #: Armed ``bit_flip:…:transport`` target rank, consumed by the next
 #: checksummed exchange (`arm_transport_flip`).
 _transport_flip: int | None = None
-
-#: Armed ``net_delay`` seconds, slept before the next exchange
-#: (`arm_exchange_delay`).
-_exchange_delay: float | None = None
 
 #: Post-exchange hook of `update_halo` (`set_post_exchange_hook`).
 _post_exchange_hook = None
@@ -100,13 +97,6 @@ def _take_transport_flip() -> int | None:
     global _transport_flip
     proc, _transport_flip = _transport_flip, None
     return proc
-
-
-def arm_exchange_delay(seconds: float) -> None:
-    """Sleep ``seconds`` before this rank's next exchange (the ``net_delay``
-    fault kind): the rank enters the exchange late and its peers wait."""
-    global _exchange_delay
-    _exchange_delay = float(seconds)
 
 
 def set_post_exchange_hook(fn):
@@ -571,21 +561,22 @@ def exchange(fields, *, width: int = 1, lead: int = 0, coalesce=None) -> tuple:
     sequence, every field per dimension (`update_halo`'s body; the
     ensemble's through `models._batched.update_halo`, ``lead = 1``).
     Returns the fields; under autograd (`needs_grad`) they carry the
-    exchange's adjoint (`_Exchange`).  An armed `arm_exchange_delay` sleeps
-    first; with ``IGG_INTEGRITY=1`` the exchange runs checksummed under a
+    exchange's adjoint (`_Exchange`).  An armed ``net_delay``
+    (`utils.tracing.arm_collective_delay`) sleeps first; with
+    ``IGG_INTEGRITY=1`` the exchange runs checksummed under a
     `TransportCollector` and its flags are read once at the end
-    (`_check_transport_flags`)."""
-    global _exchange_delay
-    if _exchange_delay is not None:
-        delay, _exchange_delay = _exchange_delay, None
-        time.sleep(delay)
-    if integrity_enabled_env() is not True:
-        return _exchange(fields, width, lead, coalesce)
-    col = _itransport.TransportCollector(flip_proc=_take_transport_flip())
-    with _itransport.use_collector(col):
-        out = _exchange(fields, width, lead, coalesce, col)
-    _check_transport_flags(_grid.global_grid(), col)
-    return out
+    (`_check_transport_flags`).  The exchange is one ``igg_halo_exchange``
+    host span (the JAX package's name)."""
+    if _tracing._collective_delay:
+        _tracing._consume_collective_delay()
+    with _tracing.trace_span("igg_halo_exchange", fields=len(fields), width=width):
+        if integrity_enabled_env() is not True:
+            return _exchange(fields, width, lead, coalesce)
+        col = _itransport.TransportCollector(flip_proc=_take_transport_flip())
+        with _itransport.use_collector(col):
+            out = _exchange(fields, width, lead, coalesce, col)
+        _check_transport_flags(_grid.global_grid(), col)
+        return out
 
 
 def _exchange(fields, width, lead, coalesce, col=None) -> tuple:
@@ -603,7 +594,6 @@ def _check_transport_flags(gg, col) -> None:
     `neighbors_table`) is implicated.  Raises locally and never drives a
     collective (JAX ``ops/halo._check_transport_flags``)."""
     from ..integrity.errors import IntegrityError
-    from ..utils import telemetry as _telemetry
 
     flags = col.stacked_flags()
     if flags is None:
@@ -620,12 +610,14 @@ def _check_transport_flags(gg, col) -> None:
     fields = tuple(rec["fields"])
     coords = tuple(int(c) for c in gg.coords)
     _telemetry.counter("integrity.transport_mismatches").inc()
-    # The JAX package also dumps a ``reason=sdc`` flight bundle here
-    # (ROADMAP item 14).
     _telemetry.event(
         "integrity.transport_mismatch", detector="transport_checksum",
         dim=dim, direction=direction, fields=list(fields), block=list(coords),
         implicated_rank=sender,
+    )
+    _tracing.dump_flight_recorder(
+        "sdc", detector="transport_checksum", implicated_rank=sender, dim=dim,
+        direction=direction, fields=list(fields), block=list(coords),
     )
     raise IntegrityError(
         f"halo transport checksum mismatch: dim {dim} ({direction} "
@@ -667,6 +659,11 @@ def begin_slab_exchange(fields, dims, *, width: int, lead: int = 0, coalesce=Non
     ``coalesce`` as in `update_halo`.  No autograd: the schedules that call
     it carry their own (`ops.overlap.fused_with_plain_grad`).
     """
+    with _tracing.trace_span("igg_slab_exchange_begin", fields=len(fields)):
+        return _begin_slab_exchange(fields, dims, width, lead, coalesce)
+
+
+def _begin_slab_exchange(fields, dims, width, lead, coalesce):
     gg = _grid.global_grid()
     pends = [[] for _ in fields]
     received = [{} for _ in fields]
@@ -705,17 +702,18 @@ def finish_slab_exchange(fields, pends):
     they hold the same owned values.  On CUDA the current stream first waits
     for the communication stream.  Returns the fields.
     """
-    if fields and fields[0].is_cuda:
-        main = torch.cuda.current_stream(fields[0].device)
-        main.wait_stream(_comm_stream(fields[0].device))
-        for pend in pends:
-            for *_, lo, hi in pend:
-                for t in (lo, hi):
-                    if t is not None:
-                        t.record_stream(main)
-    for A, pend in zip(fields, pends):
-        for d, width, lead, lo, hi in pend:
-            _write_planes(A, d, width, lo, hi, lead)
+    with _tracing.trace_span("igg_slab_exchange_finish", fields=len(fields)):
+        if fields and fields[0].is_cuda:
+            main = torch.cuda.current_stream(fields[0].device)
+            main.wait_stream(_comm_stream(fields[0].device))
+            for pend in pends:
+                for *_, lo, hi in pend:
+                    for t in (lo, hi):
+                        if t is not None:
+                            t.record_stream(main)
+        for A, pend in zip(fields, pends):
+            for d, width, lead, lo, hi in pend:
+                _write_planes(A, d, width, lo, hi, lead)
     return tuple(fields)
 
 

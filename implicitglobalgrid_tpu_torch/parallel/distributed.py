@@ -80,6 +80,10 @@ def init_distributed(device: torch.device, *, retries: int | None = None,
     if device.type == "cuda":
         torch.cuda.set_device(device)  # NCCL binds to the current device
     rank = int(os.environ["RANK"])
+    # Retry and fault events fired before the group is up carry this rank.
+    from ..utils import telemetry as _telemetry
+
+    _telemetry.set_rank_hint(rank)
     injector = _resilience.get_fault_injector()
 
     def attempt():

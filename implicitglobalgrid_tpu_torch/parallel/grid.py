@@ -268,6 +268,17 @@ def init_global_grid(
     if select_device:
         _bind_device()
     init_timing_functions()
+    # Cross-rank clock sync: one more barrier, every rank's wall and perf
+    # clocks sampled right at its exit — the shared instant
+    # `utils.tracing.dump_trace` merges per-rank timelines on, with the
+    # barrier's duration as the alignment's uncertainty.  One process needs
+    # no barrier: its one clock aligns with itself.
+    from ..utils import tracing as _tracing
+
+    _tracing.record_clock_sync(
+        (lambda: _distributed.sync_all_processes(device)) if nprocs > 1 else None,
+        epoch=_epoch,
+    )
     return me, dims, nprocs, coords, device
 
 

@@ -6,12 +6,11 @@ The front door must say *no* cheaply, for a reason, with a useful
 evaluated in order over one live VIEW of the telemetry registry:
 
 * **SLO** — while the pool is breaching its latency SLO, new work only
-  deepens the breach.  Two signals flip this gate in the JAX package: an
-  active CRITICAL anomaly alert, and the rolling ``serving.round_seconds``
-  p99 window exceeding ``IGG_FRONTDOOR_SLO_P99_S`` when that knob is set.
-  The port has the second; the anomaly rule engine is ROADMAP Queue A
-  item 14, and until it exists `gauge_view` reports ``critical_alert``
-  False.
+  deepens the breach.  Two signals flip this gate: an active CRITICAL
+  anomaly alert (the `utils.liveplane` rule engine — admission runs its
+  scrape-source tick, the only vantage that sees a stalled serving loop),
+  and the rolling ``serving.round_seconds`` p99 window exceeding
+  ``IGG_FRONTDOOR_SLO_P99_S`` when that knob is set.
 * **Backpressure** — the ``serving.queue_depth`` gauge at/above
   ``IGG_FRONTDOOR_QUEUE_MAX`` (default 4x the pool capacity): the queue is
   the elastic buffer, but an unbounded one just converts overload into
@@ -42,7 +41,9 @@ import threading
 import time
 
 from ..utils import config as _config
+from ..utils import liveplane as _liveplane
 from ..utils import telemetry as _telemetry
+from ..utils import tracing as _tracing
 
 #: reject reasons, in evaluation order
 REASONS = ("slo", "backpressure", "quota")
@@ -180,24 +181,26 @@ class Decision:
     view: dict
 
 
-def critical_alert_active() -> bool:
-    """Whether a CRITICAL anomaly alert is active.  The anomaly rule engine
-    comes with the live plane (ROADMAP Queue A item 14); until it exists no
-    alert can be active and this is False."""
-    return False
+def _critical_alert() -> bool:
+    """Whether the rule engine holds an active CRITICAL alert."""
+    return any(a.get("severity") == "critical"
+               for a in _liveplane.get_engine().active_alerts())
 
 
-def gauge_view(*, snap: dict | None = None) -> dict:
+def gauge_view(*, snap: dict | None = None, tick: bool = True) -> dict:
     """The live admission/autoscale VIEW from the telemetry registry.
 
-    One registry snapshot feeds everything: the serving occupancy gauges
-    and the rolling ``serving.round_seconds`` window.  The JAX package also
-    ticks its anomaly rule engine over the same snapshot here; that engine
-    is ROADMAP Queue A item 14, so ``critical_alert`` is
-    `critical_alert_active`.
+    One registry snapshot feeds everything: the serving occupancy gauges,
+    the rolling ``serving.round_seconds`` window (falling back to the
+    published ``slo.*`` gauges), and — when ``tick`` — a scrape-source
+    rule-engine evaluation over the SAME snapshot, so a stalled serving
+    loop flips ``critical_alert`` at admission time without waiting for a
+    heartbeat the stalled loop can never reach.
     """
     if snap is None:
         snap = _telemetry.snapshot()
+    if tick and _telemetry.enabled():
+        _liveplane.get_engine().tick("scrape", snap=snap)
     gauges = snap.get("gauges", {})
     win = snap.get("histograms", {}).get("serving.round_seconds", {}).get(
         "window"
@@ -215,7 +218,7 @@ def gauge_view(*, snap: dict | None = None) -> dict:
         "capacity": gauges.get("serving.capacity"),
         "round_p50_s": win.get("p50", gauges.get("slo.serving.round_seconds.p50")),
         "round_p99_s": win.get("p99", gauges.get("slo.serving.round_seconds.p99")),
-        "critical_alert": critical_alert_active(),
+        "critical_alert": _critical_alert(),
     }
 
 
@@ -241,7 +244,9 @@ class AdmissionController:
         """The registry view, TTL-cached (`VIEW_TTL_S`): under a 429 storm
         the "cheap" rejection path must not sort every histogram reservoir
         per request.  The snapshot-derived numbers age up to one TTL; the
-        CRITICAL-alert bit is re-read on EVERY call."""
+        CRITICAL-alert bit is re-read from the engine on EVERY call, so an
+        alert another tick raised is seen immediately and a breach the
+        cached view predates is seen within one TTL of the next tick."""
         with self._lock:
             cached = (
                 dict(self._view)
@@ -250,10 +255,10 @@ class AdmissionController:
                 else None
             )
         if cached is None:
-            cached = gauge_view()
+            cached = gauge_view()  # one snapshot + scrape-source rule tick
             with self._lock:
                 self._view, self._view_at = dict(cached), now
-        cached["critical_alert"] = critical_alert_active()
+        cached["critical_alert"] = _critical_alert()
         return cached
 
     def _bucket(self, tenant: str) -> TokenBucket | None:
@@ -276,37 +281,40 @@ class AdmissionController:
               view: dict | None = None) -> Decision:
         """Decide one request NOW: build the live view (or take the
         caller's), refill the tenant's bucket, run `decide`, consume a
-        token only on admission, and account the outcome.  (The JAX
-        package also records an ``igg.serving.admission`` span here; spans
-        are ROADMAP Queue A item 14.)"""
-        if now is None:
-            now = self._clock()
-        bucket = self._bucket(tenant)
-        if view is None:
-            view = self._live_view(now)
-        wait = None
-        if bucket is not None:
-            # refill → decide → take under ONE lock acquisition: two
-            # concurrent submits must not both observe the same token
-            # and both admit (check-then-act) — `decide` is pure and
-            # cheap, so holding the lock across it is fine
-            with self._lock:
-                view = dict(view, tenant_tokens=bucket.refill(now))
+        token only on admission, and account the outcome.  The decision
+        runs under an ``igg.serving.admission`` span — inside a request
+        context (the front door's submit path) it chains into the
+        request's causal tree and `utils.tracing.critical_path` charges
+        its time to the ``admission`` segment."""
+        with _tracing.trace_span("igg.serving.admission", tenant=tenant):
+            if now is None:
+                now = self._clock()
+            bucket = self._bucket(tenant)
+            if view is None:
+                view = self._live_view(now)
+            wait = None
+            if bucket is not None:
+                # refill → decide → take under ONE lock acquisition: two
+                # concurrent submits must not both observe the same token
+                # and both admit (check-then-act) — `decide` is pure and
+                # cheap, so holding the lock across it is fine
+                with self._lock:
+                    view = dict(view, tenant_tokens=bucket.refill(now))
+                    verdict = decide(view, self.policy)
+                    if verdict["admit"]:
+                        bucket.take()
+                    elif verdict["reason"] == "quota":
+                        wait = bucket.seconds_until_token()
+            else:
                 verdict = decide(view, self.policy)
-                if verdict["admit"]:
-                    bucket.take()
-                elif verdict["reason"] == "quota":
-                    wait = bucket.seconds_until_token()
-        else:
-            verdict = decide(view, self.policy)
-        retry = 0.0 if verdict["admit"] else retry_after_s(
-            view, self.policy, verdict["reason"], bucket_wait_s=wait
-        )
-        self._account(tenant, verdict)
-        return Decision(
-            admit=verdict["admit"], reason=verdict["reason"],
-            retry_after_s=retry, view=view,
-        )
+            retry = 0.0 if verdict["admit"] else retry_after_s(
+                view, self.policy, verdict["reason"], bucket_wait_s=wait
+            )
+            self._account(tenant, verdict)
+            return Decision(
+                admit=verdict["admit"], reason=verdict["reason"],
+                retry_after_s=retry, view=view,
+            )
 
     def _account(self, tenant: str, verdict: dict) -> None:
         if verdict["admit"]:

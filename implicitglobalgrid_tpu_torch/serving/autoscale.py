@@ -15,10 +15,10 @@ when it should not be.  The mechanism is deliberately split:
   x slot capacity), a sustain counter (``IGG_AUTOSCALE_SUSTAIN``
   consecutive identical verdicts before anything moves — one bursty
   heartbeat must not resize a cluster), and the drain bookkeeping for
-  scale-downs.  The JAX package's `Autoscaler` also subscribes to the
-  anomaly rule engine (``on_alert``, reported as ``last_alert``); that
-  engine comes with the live plane (ROADMAP Queue A item 14), and resize
-  verdicts come only from the sustained gauge policy either way.
+  scale-downs.  It subscribes to the `utils.liveplane` rule engine the
+  same way `resilience.RunGuard` does (`FrontDoor` wires it), so anomaly
+  alerts are visible in its status (``last_alert``) even though resize
+  verdicts come only from the sustained gauge policy.
 
 Execution is NOT here: a resize changes the process topology, which a
 live process cannot do to itself.  The verdict travels rank-0 → everyone
@@ -136,10 +136,16 @@ class Autoscaler:
         self._streak_verdict = "hold"
         self._streak = 0
         self.last_verdict = "hold"
+        self.last_alert: dict | None = None
 
     @property
     def current(self) -> Rung:
         return self.policy.ladder[self.rung]
+
+    def on_alert(self, alert: dict) -> None:
+        """Rule-engine subscription surface (the RunGuard mechanism):
+        alerts inform the status view; resizes stay gauge-driven."""
+        self.last_alert = alert
 
     def observe(self, view: dict) -> dict | None:
         verdict = decide(view, self.policy, self.rung)
@@ -177,4 +183,5 @@ class Autoscaler:
             "sustain": self.policy.sustain,
             "last_verdict": self.last_verdict,
             "streak": self._streak,
+            "last_alert": self.last_alert,
         }

@@ -22,8 +22,9 @@ door is the cluster's single network entry):
   410 once pruned under the retention knobs, 404 for an unknown id.
 - ``GET /v1/status`` — occupancy, admission/autoscaler state, request
   ledger counts.  ``GET /metrics`` (Prometheus text of the registry) and
-  ``GET /healthz`` (the ``serving`` / ``frontdoor`` / ``slo`` sections of
-  the JAX package's health document, `health_snapshot`).
+  ``GET /healthz`` (`utils.liveplane.health_snapshot` after a scrape-source
+  rule tick: ``ok`` is False while a CRITICAL alert is active, and the
+  ``alerts`` section lists them).
 - ``POST /v1/shutdown`` — broadcast a clean stop.
 
 **Control plane.**  `ServingLoop` state is SPMD: every rank must submit
@@ -46,12 +47,15 @@ checkpoint's elastic path (leading ensemble axis included), re-`adopt`\\ s
 every live member with its step count and budget intact, and rebuilds
 still-queued members from their specs.  Scale-downs drain first.
 
-Waiting for ROADMAP Queue A item 14 (host planes), each place marked
-below: minting and recording request traces (the door echoes an inbound
-``traceparent`` header verbatim and ledgers no context of its own), the
-anomaly rule engine behind the ``slo`` gate's alert signal and the
-autoscaler's alert subscription, and the per-rank live-plane scrape
-server (the door serves ``/metrics`` and ``/healthz`` itself).
+Request tracing: `handle_submit` adopts an inbound ``traceparent`` (or a
+router-forwarded ``doc["trace"]``) or mints a head-sampled context
+(``IGG_TRACE_SAMPLE``); the member-level child context rides the control
+broadcast into every rank's rounds, the queue wait and the submit→result
+span are recorded retroactively, and each retiring member's digest is an
+``igg.frontdoor.digest`` span under its request — so
+`utils.tracing.request_tree` rebuilds one request's tree from the door to
+the halo exchange.  The door's autoscaler subscribes to the live plane's
+rule engine.
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ import numpy as np
 import torch
 
 from ..utils import config as _config
+from ..utils import liveplane as _liveplane
 from ..utils import telemetry as _telemetry
+from ..utils import tracing as _tracing
 from . import admission as _admission
 from .loop import Request, ServingLoop
 
@@ -79,7 +85,6 @@ __all__ = [
     "RESIZE_PLAN",
     "broadcast_control",
     "endpoint_filename",
-    "health_snapshot",
     "state_digest",
 ]
 
@@ -101,8 +106,6 @@ SOCKET_TIMEOUT_S = 10
 
 #: padding quantum of the control broadcast's byte buffer
 _BCAST_PAD = 1024
-
-_T0 = time.time()
 
 
 def endpoint_filename(rank: int) -> str:
@@ -156,9 +159,11 @@ def broadcast_control(doc: dict | None) -> dict:
     rank.  Single-process grids return the message directly.  Over
     `torch.distributed`: one broadcast of the length (0 ends the exchange:
     nothing to apply), then one of the bytes padded to `_BCAST_PAD`; under
-    NCCL both tensors live on the grid's device."""
+    NCCL both tensors live on the grid's device.  An armed ``net_delay``
+    (`utils.tracing.arm_collective_delay`) sleeps first."""
     if _telemetry.process_count() == 1:
         return doc or {}
+    _tracing._consume_collective_delay()
     import torch.distributed as dist
 
     from ..parallel import distributed as _dist
@@ -180,79 +185,6 @@ def broadcast_control(doc: dict | None) -> dict:
     buf = buf.to(device)
     dist.broadcast(buf, src=0)
     return json.loads(buf[:n].cpu().numpy().tobytes().decode())
-
-
-# -- the health document ------------------------------------------------------
-
-
-def health_snapshot(snap: dict | None = None) -> dict:
-    """The ``/healthz`` document of one registry snapshot: the JAX package's
-    (`utils.liveplane.health_snapshot`) identity, ``grid``, ``last_step``,
-    ``guard``, ``serving``, ``frontdoor`` and ``slo`` sections.  ``ok`` is
-    False while a CRITICAL alert is active, which needs the anomaly rule
-    engine (ROADMAP Queue A item 14): until then it is
-    `admission.critical_alert_active` negated, and the ``alerts`` section is
-    left out.  ``serving``/``frontdoor``/``slo`` appear only when their
-    metrics were published."""
-    if snap is None:
-        snap = _telemetry.snapshot()
-    gauges = snap.get("gauges", {})
-    counters = snap.get("counters", {})
-    doc: dict = {
-        "ok": not _admission.critical_alert_active(),
-        "ts": snap["ts"], "rank": snap["rank"], "pid": snap["pid"],
-        "coords": snap.get("coords"), "uptime_s": time.time() - _T0,
-        "telemetry_enabled": snap["enabled"],
-    }
-    from ..parallel import grid as _grid
-
-    if _grid.grid_is_initialized():
-        gg = _grid.global_grid()
-        doc["grid"] = {"nxyz_g": list(gg.nxyz_g), "nxyz": list(gg.nxyz),
-                       "dims": list(gg.dims), "coords": list(gg.coords),
-                       "nprocs": gg.nprocs, "me": gg.me, "epoch": gg.epoch}
-    prog = _telemetry.last_progress()
-    if prog is not None:
-        doc["last_step"] = prog
-    doc["guard"] = {
-        "trips": counters.get("resilience.guard_trips", 0),
-        "rollbacks": counters.get("resilience.rollbacks", 0),
-        "watchdog_deadline_exceeded": counters.get("resilience.watchdog_deadline_exceeded", 0),
-        "retries": counters.get("resilience.retries", 0),
-        "flight_dumps": counters.get("resilience.flight_dumps", 0),
-    }
-    if "serving.active_members" in gauges:
-        doc["serving"] = {
-            "active_members": gauges["serving.active_members"],
-            "queue_depth": gauges.get("serving.queue_depth"),
-            "capacity": gauges.get("serving.capacity"),
-        }
-        oldest = gauges.get("frontdoor.oldest_submitted_ts")
-        if oldest:
-            doc["serving"]["oldest_request_age_s"] = round(max(0.0, time.time() - oldest), 3)
-    if "frontdoor.port" in gauges or "frontdoor.requests_total" in counters:
-        rejected = {name[len("frontdoor.rejected."):]: v for name, v in counters.items()
-                    if name.startswith("frontdoor.rejected.")}
-        tenants: dict[str, dict] = {}
-        for name, v in counters.items():
-            if name.startswith("frontdoor.tenant."):
-                tenant, _, kind = name[len("frontdoor.tenant."):].rpartition(".")
-                if tenant:
-                    tenants.setdefault(tenant, {})[kind] = v
-        doc["frontdoor"] = {
-            "port": gauges.get("frontdoor.port"),
-            "pending": gauges.get("frontdoor.pending"),
-            "backpressure": gauges.get("frontdoor.backpressure"),
-            "requests_total": counters.get("frontdoor.requests_total", 0),
-            "admitted_total": counters.get("frontdoor.admitted_total", 0),
-            "rejected_total": counters.get("frontdoor.rejected_total", 0),
-            "rejected": rejected,
-            "tenants": tenants,
-        }
-    slo = {name: s["window"] for name, s in snap.get("histograms", {}).items() if "window" in s}
-    if slo:
-        doc["slo"] = slo
-    return doc
 
 
 # -- the HTTP layer -----------------------------------------------------------
@@ -306,7 +238,9 @@ def _make_handler(fd: "FrontDoor"):
                         ctype="text/plain; version=0.0.4; charset=utf-8",
                     )
                 elif path == "/healthz":
-                    self._reply(200, health_snapshot())
+                    snap = _telemetry.snapshot()
+                    _liveplane.get_engine().tick("scrape", snap=snap)
+                    self._reply(200, _liveplane.health_snapshot(snap))
                 else:
                     self.send_error(404, "unknown endpoint")
             except Exception as e:  # a scrape must never kill the server
@@ -455,14 +389,16 @@ class FrontDoor:
         self._httpd = None
         self._thread = None
         self.port: int | None = None
-        self.rank = _telemetry._rank()
-        if self.autoscaler is not None and not self.checkpoint_dir:
-            raise ValueError(
-                "autoscaling needs a checkpoint_dir: a resize IS a "
-                "checkpoint + supervised restart."
-            )
-        # The autoscaler's subscription to the anomaly rule engine waits
-        # for the engine (ROADMAP Queue A item 14).
+        self.rank = _telemetry._proc_index()
+        if self.autoscaler is not None:
+            if not self.checkpoint_dir:
+                raise ValueError(
+                    "autoscaling needs a checkpoint_dir: a resize IS a "
+                    "checkpoint + supervised restart."
+                )
+            # the RunGuard subscription mechanism: anomaly alerts reach the
+            # autoscaler's status view through the rule engine
+            _liveplane.subscribe(self.autoscaler.on_alert)
         if self.rank == 0:
             self._start_server(port, host)
 
@@ -509,8 +445,10 @@ class FrontDoor:
                 pass  # an unwritable dir must not take serving down
 
     def close(self) -> None:
-        """Stop the HTTP server (the pool itself is untouched — a closed
-        door does not evict anyone)."""
+        """Stop the HTTP server and drop the engine subscription (the pool
+        itself is untouched — a closed door does not evict anyone)."""
+        if self.autoscaler is not None:
+            _liveplane.unsubscribe(self.autoscaler.on_alert)
         httpd, self._httpd = self._httpd, None
         if httpd is not None:
             httpd.shutdown()
@@ -567,12 +505,35 @@ class FrontDoor:
         """One ``POST /v1/submit`` → ``(code, body, headers)``.  Validation
         → 400 before admission ever runs; admission → 429 with
         ``Retry-After``; accepted specs land in the pending queue the next
-        control sync broadcasts.  An inbound ``traceparent`` header is
-        echoed verbatim on every response (minting and recording request
-        traces is ROADMAP Queue A item 14)."""
+        control sync broadcasts.
+
+        Trace context: an inbound ``doc["trace"]`` (a router-forwarded or
+        replayed spec — wins) or W3C ``traceparent`` header is adopted;
+        otherwise one is minted, head-sampled (``IGG_TRACE_SAMPLE``).  A
+        traced request's every response carries ``traceparent`` back; the
+        accepted spec carries a member-level child context into the
+        control broadcast, so every rank's serving rounds tag the
+        request.  Untraced requests pay nothing beyond echoing an inbound
+        header verbatim."""
         tenant = str(doc.get("tenant") or "default")
         _telemetry.counter("frontdoor.requests_total").inc()
-        echo = {"traceparent": str(traceparent)} if traceparent else {}
+        inbound = doc.get("trace") if isinstance(doc.get("trace"), dict) else None
+        if inbound is None:
+            inbound = _tracing.parse_traceparent(traceparent)
+        ctx = None
+        t0 = 0.0
+        if _tracing.enabled() and (inbound is not None or _tracing.should_sample()):
+            tid = inbound["trace_id"] if inbound else _tracing.new_trace_id()
+            ctx = {"trace_id": tid, "span_id": _tracing.new_span_id()}
+            if inbound and inbound.get("span_id"):
+                ctx["parent_id"] = inbound["span_id"]
+            t0 = time.perf_counter()
+        if ctx is not None:
+            echo = {"traceparent": _tracing.format_traceparent(ctx)}
+        elif traceparent:
+            echo = {"traceparent": str(traceparent)}  # pure passthrough
+        else:
+            echo = {}
         err = self._validate(doc)
         if err is not None:
             _telemetry.counter("frontdoor.invalid_total").inc()
@@ -585,7 +546,8 @@ class FrontDoor:
             if self._refusing:
                 code, body, hdrs = self._reject_resizing(tenant)
                 return code, body, {**hdrs, **echo}
-            decision = self.admission.check(tenant)
+            with _tracing.use_context(ctx):
+                decision = self.admission.check(tenant)
             if not decision.admit:
                 _telemetry.event(
                     "frontdoor.reject", tenant=tenant, reason=decision.reason,
@@ -613,15 +575,34 @@ class FrontDoor:
             rid = f"r{self._next_request:06d}"
             self._next_request += 1
             spec["id"] = rid
+            rec_trace = None
+            if ctx is not None:
+                # The member-level child context: rides the spec through
+                # the control broadcast (every rank tags its rounds with
+                # it), the checkpoint slot metadata (a trace survives a
+                # generation bump) and any re-routed replay of the spec.
+                member_ctx = {"trace_id": ctx["trace_id"], "span_id": _tracing.new_span_id()}
+                spec["trace"] = member_ctx
+                rec_trace = {**ctx, "member_span_id": member_ctx["span_id"]}
             self._requests[rid] = {
                 "id": rid, "tenant": tenant, "params": spec["params"],
                 "submitted_ts": time.time(), "member": None, "done": None,
-                "trace": None,
+                "trace": rec_trace,
             }
             self._pending.append(spec)
             _telemetry.gauge("frontdoor.pending").set(len(self._pending))
         self._publish_oldest_gauge()
-        _telemetry.event("frontdoor.admit", request=rid, tenant=tenant, **spec["params"])
+        trace_tags = {"trace_id": ctx["trace_id"]} if ctx else {}
+        _telemetry.event("frontdoor.admit", request=rid, tenant=tenant,
+                         **spec["params"], **trace_tags)
+        if ctx is not None:
+            # The HTTP-handler hop (validation + admission + enqueue),
+            # chained under the request span recorded at harvest.
+            _tracing.record_span(
+                "igg.frontdoor.submit", t0=t0, dur=time.perf_counter() - t0,
+                parent={"trace_id": ctx["trace_id"], "span_id": ctx["span_id"]},
+                request=rid, tenant=tenant,
+            )
         return 202, {"request_id": rid}, echo
 
     def trace_header(self, rid: str) -> dict | None:
@@ -632,7 +613,8 @@ class FrontDoor:
             tr = rec.get("trace") if rec else None
         if not tr:
             return None
-        return {"traceparent": f"00-{tr['trace_id']}-{tr['span_id']}-01"}
+        return {"traceparent": _tracing.format_traceparent(
+            {"trace_id": tr["trace_id"], "span_id": tr["span_id"]})}
 
     def _reject_resizing(self, tenant: str):
         """Mid-resize 429: the pool is checkpointing for a restart — turn
@@ -751,7 +733,7 @@ class FrontDoor:
         if self.loop.rounds == self._as_round and now - self._as_t < 0.25:
             return None
         self._as_round, self._as_t = self.loop.rounds, now
-        view = _admission.gauge_view()
+        view = _admission.gauge_view(tick=False)
         if self._drain_target is not None:
             target = self._drain_target
             # drained() = no member left in a retiring slot (which implies
@@ -832,8 +814,19 @@ class FrontDoor:
                 rec = self._requests.get(spec.get("id"))
                 if rec is not None:
                     rec["member"] = member
-        # The JAX door also records the queue wait as a span here: ROADMAP
-        # Queue A item 14.
+            rtr = rec.get("trace") if rec else None
+            if trace is not None and rtr is not None:
+                # Queue wait, retroactively: submit→admission into the
+                # pool, under the PRE-BROADCAST member span id, so every
+                # rank's round spans (which carry the same member context)
+                # parent here without any cross-process id exchange.
+                wait = time.time() - rec["submitted_ts"]
+                _tracing.record_span(
+                    "igg.frontdoor.admit", t0=time.perf_counter() - wait, dur=wait,
+                    parent={"trace_id": rtr["trace_id"], "span_id": rtr.get("span_id")},
+                    span_id=trace.get("span_id"), request=spec.get("id"), member=member,
+                    tenant=spec.get("tenant", "default"),
+                )
 
     def _harvest(self) -> None:
         """Collect newly retired members: the collective digest, the
@@ -846,21 +839,29 @@ class FrontDoor:
         for member in fresh:
             self._seen_results.add(member)
             res = self.loop.results[member]
+            rec = None
+            if self.rank == 0:
+                with self._lock:
+                    rec = next(
+                        (r for r in self._requests.values()
+                         if r["member"] == member),
+                        None,
+                    )
             digest = None
             if self.digest_results and res.state is not None:
-                digest = state_digest(res.state)
+                # The digest gathers every field to the host on the serving
+                # thread: its own span, under the member's request context
+                # where this rank ledgered one.
+                tr = rec.get("trace") if rec else None
+                ctx = ({"trace_id": tr["trace_id"], "span_id": tr["member_span_id"]}
+                       if tr else None)
+                with _tracing.use_context(ctx), \
+                        _tracing.trace_span("igg.frontdoor.digest", member=member):
+                    digest = state_digest(res.state)
             # Every rank consumed the result (the digest is the read):
             # under the retention knobs the pool may now prune the member
             # state at the next round end, uniformly across ranks.
             self.loop.mark_consumed(member)
-            if self.rank != 0:
-                continue
-            with self._lock:
-                rec = next(
-                    (r for r in self._requests.values()
-                     if r["member"] == member),
-                    None,
-                )
             if rec is None:
                 continue
             latency = time.time() - rec["submitted_ts"]
@@ -882,8 +883,18 @@ class FrontDoor:
                 tenant=rec["tenant"], result=res.status, steps=res.steps,
                 latency_s=round(latency, 6), **trace_tags,
             )
-            # The request's root span (submit -> result) is recorded here in
-            # the JAX door: ROADMAP Queue A item 14.
+            if tr is not None:
+                # The request's root-side span: submit→result on the door,
+                # recorded retroactively under the ledgered request span id
+                # so the whole tree (submit hop, queue wait, rounds on every
+                # rank) hangs off one span.
+                _tracing.record_span(
+                    "igg.frontdoor.request", t0=time.perf_counter() - latency,
+                    dur=latency,
+                    parent={"trace_id": tr["trace_id"], "span_id": tr.get("parent_id")},
+                    span_id=tr["span_id"], request=rec["id"], member=member,
+                    tenant=rec["tenant"], result=res.status,
+                )
         # The loop prunes consumed member states at round end; mirror the
         # bound here so a request flood cannot grow the door either —
         # member ids never repeat, so the intersection is monotone-safe.
@@ -1024,41 +1035,41 @@ class FrontDoor:
         # the resize in the refusal).  Rank-uniform, so the raise cannot
         # split the collective save.
         _generation.check_fence("frontdoor.resize")
-        # (The JAX door records this under an igg.frontdoor.resize span:
-        # ROADMAP Queue A item 14.)
-        if self.loop._state is None:
-            # an empty pool still resizes (scale-down at idle): prime
-            # it so there is a (blank) pool to checkpoint and restore
-            self.loop.prime(self._build_state(1.0))
-        extra = {
-            **self.loop._serving_meta(),
-            "frontdoor": self._frontdoor_meta(),
-            "resize": {k: plan[k] for k in ("nproc", "capacity", "rung",
-                                            "reason") if k in plan},
-        }
-        path = _checkpoint.save_checkpoint(
-            self.checkpoint_dir, self.loop._state, self.loop.rounds,
-            extra=extra,
-        )
-        if self.rank == 0:
-            plan_doc = {
-                **{k: plan[k] for k in ("nproc", "capacity", "rung",
-                                        "reason") if k in plan},
-                "checkpoint": path,
-                "rounds": self.loop.rounds,
-                "ts": time.time(),
+        with _tracing.trace_span("igg.frontdoor.resize", nproc=plan.get("nproc"),
+                                 capacity=plan.get("capacity")):
+            if self.loop._state is None:
+                # an empty pool still resizes (scale-down at idle): prime
+                # it so there is a (blank) pool to checkpoint and restore
+                self.loop.prime(self._build_state(1.0))
+            extra = {
+                **self.loop._serving_meta(),
+                "frontdoor": self._frontdoor_meta(),
+                "resize": {k: plan[k] for k in ("nproc", "capacity", "rung",
+                                                "reason") if k in plan},
             }
-            # fsync'd: the supervisor's ONLY relaunch instruction — it
-            # must never be readable half-written after a power cut
-            _telemetry.atomic_write_json(
-                os.path.join(self.checkpoint_dir, RESIZE_PLAN), plan_doc
+            path = _checkpoint.save_checkpoint(
+                self.checkpoint_dir, self.loop._state, self.loop.rounds,
+                extra=extra,
             )
-        _telemetry.counter("frontdoor.resizes_total").inc()
-        _telemetry.event(
-            "frontdoor.resize", checkpoint=path,
-            **{k: plan[k] for k in ("nproc", "capacity", "rung", "reason")
-               if k in plan},
-        )
+            if self.rank == 0:
+                plan_doc = {
+                    **{k: plan[k] for k in ("nproc", "capacity", "rung",
+                                            "reason") if k in plan},
+                    "checkpoint": path,
+                    "rounds": self.loop.rounds,
+                    "ts": time.time(),
+                }
+                # fsync'd: the supervisor's ONLY relaunch instruction — it
+                # must never be readable half-written after a power cut
+                _telemetry.atomic_write_json(
+                    os.path.join(self.checkpoint_dir, RESIZE_PLAN), plan_doc
+                )
+            _telemetry.counter("frontdoor.resizes_total").inc()
+            _telemetry.event(
+                "frontdoor.resize", checkpoint=path,
+                **{k: plan[k] for k in ("nproc", "capacity", "rung", "reason")
+                   if k in plan},
+            )
         self.close()
 
     def elastic_resume(self) -> bool:

@@ -45,11 +45,13 @@ Telemetry: gauges ``serving.active_members``, ``serving.queue_depth``,
 must-stream block bytes over the round wall time: per GPU); events
 ``serving.admit`` / ``retire`` / ``converged`` / ``evict`` / ``rollback``.
 
-Waiting for ROADMAP Queue A item 14 (host planes), each place marked
-below: the round's ``igg.serving.round`` span and the skew probe, the
-live-plane heartbeat tick and its alert escalation (`_escalate` in JAX),
-and the flight-recorder bundle of an audit mismatch (the event is
-recorded and `IntegrityError` raised, as the port's run guard does).
+Tracing and the live plane: each round is one ``igg.serving.round`` span
+carrying every active request's ``trace_id`` (so the exchanges inside it
+chain into those requests' trees); construction brings up the per-rank
+scrape server (``IGG_METRICS_PORT``); on ``IGG_HEARTBEAT_EVERY`` rounds the
+all-ranks skew probe and the live plane's heartbeat tick run, and a
+CRITICAL alert escalates into the member guard (`_escalate`).  An audit
+mismatch dumps a ``reason=sdc`` flight bundle before `IntegrityError`.
 """
 
 from __future__ import annotations
@@ -64,7 +66,9 @@ import torch
 from ..models import _batched
 from ..parallel import grid as _grid
 from ..utils import config as _config
+from ..utils import liveplane as _liveplane
 from ..utils import telemetry as _telemetry
+from ..utils import tracing as _tracing
 
 #: Per-model serving adapter: state field names, which fields the
 #: per-member T_eff bytes model counts, and whether the model has a PT
@@ -222,8 +226,13 @@ class ServingLoop:
         self._state = None  # built lazily from the first admitted state
         self._blank = None  # zero member state for freed slots
         self._sig = None    # pool field signature: ((block shape, dtype), ...)
-        # The per-rank scrape server and the alert-stream cursor of the JAX
-        # loop come with the live plane (ROADMAP Queue A item 14).
+        # The live plane: the scrape endpoint is up as soon as the pool
+        # exists (no-op unless IGG_METRICS_PORT is set), and the alert
+        # stream is polled from this cursor each round.  The cursor starts
+        # at the engine's CURRENT seq: alerts fired before this pool existed
+        # must not replay as escalations.
+        self._alert_seq, _ = _liveplane.alerts_since(float("inf"))
+        _liveplane.ensure_server()
         self._publish_gauges()
 
     # -- pool state -----------------------------------------------------------
@@ -447,14 +456,28 @@ class ServingLoop:
     # -- the round ------------------------------------------------------------
 
     def run_round(self) -> None:
-        """One serving round: step active members, guard, retire, admit.
-
-        (The JAX loop wraps the round in an ``igg.serving.round`` span and
-        runs the all-ranks skew probe at the heartbeat cadence: spans and
-        the probe are ROADMAP Queue A item 14.)
-        """
+        """One serving round: step active members, guard, retire, admit,
+        under one ``igg.serving.round`` span."""
         self._admit_from_queue()
         mask = self._mask()
+        members = [
+            {"member": s.member, "slot": k, "tenant": s.tenant,
+             **({"trace": s.trace} if s.trace else {})}
+            for k, s in enumerate(self.slots)
+            if s.active
+        ]
+        # The round advances MANY requests at once: the span carries every
+        # active request's context (the multi-request form), so anything
+        # nested under the round — exchanges, audits, checkpoint saves —
+        # inherits the same trace_ids.
+        trace_ids = sorted({m["trace"]["trace_id"] for m in members if "trace" in m})
+        round_ctx = {"trace_ids": trace_ids} if trace_ids else None
+        with _tracing.use_context(round_ctx), _tracing.trace_span(
+            "igg.serving.round", round=self.rounds, members=members, queued=len(self.queue),
+        ):
+            self._round(mask)
+
+    def _round(self, mask: np.ndarray) -> None:
         dt = 0.0
         if self._state is not None and mask.any():
             t0 = time.perf_counter()
@@ -493,13 +516,24 @@ class ServingLoop:
         if _telemetry.enabled():
             _telemetry.note_progress("serving.round", self.rounds)
             hb = _config.heartbeat_every_env() or 0
+            # The gate must be rank-uniform (the probe is a collective):
+            # rounds and mask derive from the admit/retire sequence every
+            # rank drives identically, never from a locally measured time.
             if hb and self.rounds % hb == 0:
+                if mask.any():
+                    _tracing.skew_probe(dt / self.steps_per_round)
+                # The live-plane tick is strictly local (slo gauges and the
+                # anomaly rules, no collective).
                 rss = _telemetry.proc_rss_bytes()
                 if rss is not None:
                     _telemetry.gauge("proc.rss_bytes").set(rss)
-                # The skew probe, the live-plane heartbeat tick and the
-                # CRITICAL-alert escalation into the guard are ROADMAP
-                # Queue A item 14.
+                _liveplane.heartbeat_tick(model="serving")
+            # The alert stream: a CRITICAL anomaly escalates into the
+            # guard/evict machinery instead of scrolling past.
+            self._alert_seq, fresh = _liveplane.alerts_since(self._alert_seq)
+            for alert in fresh:
+                if alert.get("severity") == "critical":
+                    self._escalate(alert)
         if (self.checkpoint_every and self.rounds % self.checkpoint_every == 0
                 and self._state is not None):
             self._save_checkpoint()
@@ -513,9 +547,9 @@ class ServingLoop:
         bit-compares the sampled member's fields (`integrity.audit_fields`,
         collective).  The sample is round-robin over the active slots keyed
         on the round counter, rank-uniform by construction.  A mismatch is
-        recorded (``integrity.audit_mismatch``) and raises `IntegrityError`
-        (the JAX loop also dumps a flight-recorder bundle: ROADMAP Queue A
-        item 14)."""
+        recorded (``integrity.audit_mismatch``), dumps the ``reason=sdc``
+        flight bundle naming the implicated rank and raises
+        `IntegrityError`."""
         active = [k for k, s in enumerate(self.slots) if s.active and mask[k]]
         if not active:
             return
@@ -537,6 +571,11 @@ class ServingLoop:
             "integrity.audit_mismatch", detector="shadow_audit", round=self.rounds,
             member=slot.member, slot=k, tenant=slot.tenant, fields=list(report.bad_blocks),
             implicated_ranks=list(report.implicated_ranks),
+        )
+        _tracing.dump_flight_recorder(
+            "sdc", detector="shadow_audit", round=self.rounds, member=slot.member, slot=k,
+            implicated_rank=implicated, implicated_ranks=list(report.implicated_ranks),
+            report=report.summary(),
         )
         raise IntegrityError(
             f"silent data corruption: serving round {self.rounds} member {slot.member} "
@@ -569,6 +608,29 @@ class ServingLoop:
                 if slot.active and still[k]:
                     slot.snapshot = _batched.member_state(self._state, k)
                     slot.snapshot_steps = slot.steps
+
+    def _escalate(self, alert: dict) -> None:
+        """React to one CRITICAL live-plane alert: event always; on
+        single-process pools also force an immediate member-finite sweep
+        through the evict machinery (a rank-local alert must never mutate
+        the SPMD pool state across processes)."""
+        _telemetry.counter("serving.alert_escalations").inc()
+        _telemetry.event(
+            "serving.alert_escalation", rule=alert.get("rule"),
+            severity=alert.get("severity"), evidence=alert.get("evidence"),
+        )
+        if self._state is None or _telemetry.process_count() > 1:
+            return
+        mask = self._mask()
+        if not mask.any():
+            return
+        if self.guard_policy == "off":
+            # the per-round sweep is off: run one forced evict-mode sweep
+            bad = _batched.check_members_finite(self._state)
+            for k in np.flatnonzero(bad & mask):
+                self._retire(int(k), "evicted")
+        else:
+            self._guard(mask)
 
     def _convergence(self) -> None:
         if self._residual_fn is None:

@@ -16,7 +16,7 @@ file), so it can never split a collective save.  Unfenced runs
 
 The port's copy of the fence half of the JAX package's
 ``supervisor/generation.py``; publishing tokens belongs to the supervisor
-(ROADMAP Queue A item 14).
+(ROADMAP Queue A item 14e).
 """
 
 from __future__ import annotations

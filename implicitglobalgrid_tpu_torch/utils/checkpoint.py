@@ -57,6 +57,7 @@ from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS
 from . import config as _config
 from . import telemetry as _telemetry
+from . import tracing as _tracing
 
 FORMAT_VERSION = 2
 #: formats this build can restore (1 = pre-manifest, no integrity data)
@@ -156,11 +157,14 @@ def save_checkpoint(
     Refused (`supervisor.generation.FenceError`) on a superseded
     incarnation.
     """
+    with _tracing.trace_span("igg.checkpoint.save", step=step):
+        return _save_checkpoint(directory, state, step, extra=extra)
+
+
+def _save_checkpoint(directory, state: Sequence, step: int, *, extra: dict | None) -> str:
     from ..supervisor import generation as _generation
     from . import resilience as _res
 
-    # The JAX package wraps the save in an ``igg.checkpoint.save`` host span
-    # (tracing, ROADMAP item 14).
     _generation.check_fence("checkpoint.save")
     _grid.check_initialized()
     gg = _grid.global_grid()
@@ -421,6 +425,12 @@ def restore_checkpoint(
     ``copy_`` on its device, and the returned state is ``like``'s tensors;
     without it, new tensors on the grid's device are returned.
     """
+    with _tracing.trace_span("igg.checkpoint.restore", path=os.fspath(path)):
+        return _restore_checkpoint(path, like=like, strict=strict, verify=verify)
+
+
+def _restore_checkpoint(path, *, like: Sequence | None, strict: bool,
+                        verify: bool) -> tuple[tuple, int, dict]:
     _grid.check_initialized()
     gg = _grid.global_grid()
     path = os.fspath(path)

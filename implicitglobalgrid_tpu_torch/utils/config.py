@@ -271,6 +271,37 @@ def slo_window_env() -> float | None:
     return _float_env("IGG_SLO_WINDOW_S", exclusive_minimum=0)
 
 
+def trace_ring_env() -> int | None:
+    """``IGG_TRACE_RING``: per-process span ring-buffer capacity (>= 0;
+    0 disables span recording; unset = the `utils.tracing` default)."""
+    return _int_env("IGG_TRACE_RING", minimum=0)
+
+
+def trace_sample_env() -> float | None:
+    """``IGG_TRACE_SAMPLE``: head-based request-trace sampling rate at the
+    front door (in [0, 1]; 0 mints no contexts, unset/1 traces every
+    request; inbound contexts are never re-sampled)."""
+    return _float_env("IGG_TRACE_SAMPLE", minimum=0)
+
+
+def skew_warn_env() -> float | None:
+    """``IGG_SKEW_WARN``: straggler event threshold on max/min per-rank
+    step wall time (>= 0; 0 disables the event, gauges still publish)."""
+    return _float_env("IGG_SKEW_WARN", minimum=0)
+
+
+def metrics_port_env() -> int | None:
+    """``IGG_METRICS_PORT``: live-plane scrape port (>= 0; 0 = ephemeral).
+    ``None`` = unset — the per-rank HTTP server never starts."""
+    return _int_env("IGG_METRICS_PORT", minimum=0)
+
+
+def metrics_host_env() -> str | None:
+    """``IGG_METRICS_HOST``: live-plane bind address (the consumer falls
+    back to ``127.0.0.1`` when unset)."""
+    return _str_env("IGG_METRICS_HOST")
+
+
 # -- Batched serving knobs (read per loop construction) -----------------------
 
 

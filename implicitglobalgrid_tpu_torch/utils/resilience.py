@@ -26,10 +26,12 @@ the same names, messages and seeded draws:
 One process drives one block here, so where the JAX package writes a NaN
 or flips a bit at a global index on every process, the port does it on the
 target block's rank only; every rank still takes the same decisions.
-Checkpoint/restart lives in `utils.checkpoint`; `RunGuard` drives it.  The
-flight recorder, step telemetry and live-plane escalation of the JAX
-package's loop are ROADMAP Queue A item 14: where it dumps a flight bundle
-the port records the same event only.
+Checkpoint/restart lives in `utils.checkpoint`; `RunGuard` drives it.
+`guarded_time_loop` records the step telemetry (`utils.telemetry.step_loop`)
+and the ``igg.step`` spans, a critical live-plane alert escalates into the
+guard (`RunGuard.on_alert`), and a guard trip, an audit mismatch, a blown
+watchdog deadline or an injected crash leaves a flight-recorder bundle
+(`utils.tracing.dump_flight_recorder`).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS
 from . import config as _config
 from . import telemetry as _telemetry
+from . import tracing as _tracing
 
 __all__ = [
     "GuardError",
@@ -253,14 +256,17 @@ def watchdog(timeout_s: float | None, *, exit: bool = False, file=None):
         if elapsed > timeout_s:
             # The block outlived this watchdog's deadline: the closest
             # observable proxy for "the dump fired" (the stderr dump is the
-            # ground truth, this event the timeline marker).  The JAX
-            # package also dumps a flight bundle here (item 14).
+            # ground truth, this event the timeline marker), with this
+            # rank's span ring, metrics and config in a flight bundle.
             _telemetry.event(
                 "watchdog.deadline_exceeded",
                 timeout_s=timeout_s,
                 elapsed_s=elapsed,
             )
             _telemetry.counter("resilience.watchdog_deadline_exceeded").inc()
+            _tracing.dump_flight_recorder(
+                "watchdog.deadline_exceeded", timeout_s=timeout_s, elapsed_s=elapsed,
+            )
 
 
 # -- Numerical guards ---------------------------------------------------------
@@ -552,10 +558,10 @@ class FaultInjector:
       exchange).
     * ``net_delay:stepN[:procP]`` — after time-loop step ``N``, process
       ``P`` (default: the last process) arms `NET_DELAY_S` seconds of
-      latency on its NEXT halo exchange (`ops.halo.arm_exchange_delay`, a
-      sleep before the exchange; the JAX package delays its next host
-      control collective instead, item 14): the rank enters the exchange
-      late and its peers block with it — a transient network fault that
+      latency on its NEXT host collective (`utils.tracing.
+      arm_collective_delay`: a sleep before its next halo exchange or
+      control collective, whichever comes first): the rank enters it late
+      and its peers block with it — a transient network fault that
       recovers on its own.
     * ``ckpt_corrupt:stepN[:shardS]`` — right after the step-``N`` checkpoint
       publishes, a byte of shard file ``S`` (default 0) is flipped WITHOUT
@@ -791,10 +797,13 @@ class FaultInjector:
         if _safe_process_index() != want:
             return
         self.fired = True
-        # The event line is a single O_APPEND os.write: it survives the
-        # os._exit below (the crash marker of the timeline).  The JAX
-        # package also dumps a flight bundle here (ROADMAP item 14).
+        # The event line and the flight bundle are each a single O_APPEND
+        # os.write: they survive the os._exit below (the crash marker of
+        # the timeline).
         _telemetry.event(
+            "fault.worker_crash", step=step, status=self.CRASH_STATUS
+        )
+        _tracing.dump_flight_recorder(
             "fault.worker_crash", step=step, status=self.CRASH_STATUS
         )
         print(
@@ -831,9 +840,10 @@ class FaultInjector:
 
     def maybe_net_delay(self, step: int) -> None:
         """After step ``step``: arm `NET_DELAY_S` of latency on the target
-        process's NEXT halo exchange (`ops.halo.arm_exchange_delay`).  A
-        transient network fault, not a hang: the delayed rank enters the
-        exchange late and its peers block with it."""
+        process's NEXT host collective (`utils.tracing.arm_collective_delay`:
+        its next halo exchange or control collective).  A transient network
+        fault, not a hang: the delayed rank enters the collective late and
+        its peers block with it."""
         if self.kind != "net_delay" or self.fired or step != self.step:
             return
         want = self.target if self.target is not None else _last_process_index()
@@ -843,14 +853,12 @@ class FaultInjector:
         _telemetry.event("fault.net_delay", step=step, delay_s=self.NET_DELAY_S)
         print(
             f"[igg.resilience] IGG_FAULT_INJECT(net_delay): delaying the "
-            f"next halo exchange by {self.NET_DELAY_S}s "
+            f"next host collective by {self.NET_DELAY_S}s "
             f"(after step {step})",
             file=sys.stderr,
             flush=True,
         )
-        from ..ops import halo as _halo
-
-        _halo.arm_exchange_delay(self.NET_DELAY_S)
+        _tracing.arm_collective_delay(self.NET_DELAY_S)
 
     # - ckpt_corrupt / ckpt_truncate -
 
@@ -1165,7 +1173,13 @@ def snapshot_state(state: tuple) -> tuple:
     return tuple(A.clone() for A in state)
 
 
-def guarded_time_loop(step_fn, state: tuple, nt: int, *, guard: "RunGuard") -> tuple:
+#: shared reusable null context of the untraced loop
+_NULL_CM = contextlib.nullcontext()
+
+
+def guarded_time_loop(step_fn, state: tuple, nt: int, *, guard: "RunGuard",
+                      model: str | None = None, bytes_per_step: int | None = None,
+                      steps_per_call: int = 1) -> tuple:
     """The models' host-side time loop with the guard pipeline attached.
 
     Resumes from the guard's checkpoint dir when one exists, then advances
@@ -1175,14 +1189,43 @@ def guarded_time_loop(step_fn, state: tuple, nt: int, *, guard: "RunGuard") -> t
     loop variable).  Shared by the three models' ``run()`` so the guard
     semantics cannot drift between them.
 
-    With every knob off (``guard.enabled`` False) the loop is ``step_fn``
-    and nothing else: no snapshot, no probe, no synchronization.  On the
-    card the loop never waits for the device on its own: only a probe, an
-    audit or a checkpoint reads it.  Per-step telemetry of the JAX
-    package's loop is ROADMAP Queue A item 14.
+    ``model`` switches on the per-step telemetry (`utils.telemetry.
+    step_loop`): wall time, steps/s and, with ``bytes_per_step`` (the
+    solver's must-stream bytes model, `telemetry.teff_bytes`), the built-in
+    ``T_eff``, the ``IGG_HEARTBEAT_EVERY`` heartbeat, one ``igg.step`` span
+    per call, and the subscription of `RunGuard.on_alert` to the live
+    plane's rule engine while the loop runs.  Per-step wall time is the
+    loop's host time: the loop never waits for the device on its own (only
+    a probe, an audit or a checkpoint reads it), so on the card it is
+    amortized, dispatch time until the CUDA queue fills.
+
+    ``steps_per_call``: the steps one ``step_fn`` call advances (a fused
+    group); the guard's cadences count steps and must then be multiples of
+    it, and step-keyed faults fire at the steps a call ends on.
+
+    With every hook off (``guard.enabled`` False) and ``IGG_TELEMETRY=0``
+    (or ``model=None``) the loop is ``step_fn`` and nothing else: no
+    snapshot, no probe, no span, no synchronization.
     """
+    k = int(steps_per_call)
+    if k < 1:
+        raise ValueError(f"steps_per_call must be >= 1 (got {steps_per_call})")
+    cadences = {"guard_every": guard.guard_every, "checkpoint_every": guard.checkpoint_every,
+                "integrity_every": guard.integrity_every}
+    for knob, every in cadences.items():
+        if every % k:
+            raise ValueError(
+                f"{knob}={every} must be a multiple of the {k} steps each call "
+                f"advances (steps_per_call)."
+            )
     state, it = guard.start(state)
     enabled = guard.enabled
+    tele = (
+        _telemetry.step_loop(model, bytes_per_step=bytes_per_step, start_step=it,
+                             total_steps=nt)
+        if model is not None
+        else None
+    )
     if it > nt:
         # A checkpoint past the requested horizon is almost always a stale
         # directory (e.g. a previous longer run): returning it silently
@@ -1194,13 +1237,37 @@ def guarded_time_loop(step_fn, state: tuple, nt: int, *, guard: "RunGuard") -> t
             RuntimeWarning,
             stacklevel=2,
         )
-    while it < nt:
-        pre = guard.audit_snapshot(state, it) if enabled else None
-        state = step_fn(*state)
-        it += 1
-        if enabled:
-            state, it = guard.on_step(state, it, replay=(step_fn, pre))
+    # While this loop runs, a CRITICAL live-plane alert (a heartbeat tick or
+    # a scrape) forces an out-of-cadence guard probe.
+    _liveplane = None
+    if tele is not None and enabled:
+        from . import liveplane as _liveplane
+
+        _liveplane.subscribe(guard.on_alert)
+    try:
+        while it < nt:
+            # One ``igg.step`` host span per call (dispatch + guard
+            # pipeline: the wall time step_seconds records), tagged with
+            # the step it ends on.  Untraced loops reuse the shared null
+            # context.  The JAX package also opens a profiler annotation
+            # here (`trace_annotation`): ROADMAP Queue A item 14d.
+            span = (_NULL_CM if tele is None
+                    else _tracing.trace_span("igg.step", model=model, step=it + k))
+            with span:
+                pre = guard.audit_snapshot(state, it, k) if enabled else None
+                state = step_fn(*state)
+                it += k
+                if enabled:
+                    state, it = guard.on_step(state, it, replay=(step_fn, pre))
+            if tele is not None:
+                tele.on_step(it, k)
+        if tele is not None:
+            tele.finish(it)
+    finally:
+        if _liveplane is not None:
+            _liveplane.unsubscribe(guard.on_alert)
     return state
+
 
 class RunGuard:
     """Guard, checkpoint and fault injection for a host-side time loop.
@@ -1233,9 +1300,9 @@ class RunGuard:
     resumes exactly at the crash point — ``stall``, ``net_delay``, and the
     ``bit_flip`` transport arming).  Rollback restores the last good
     snapshot (in-memory; the disk checkpoint serves cross-process restart)
-    and rewinds ``it``.  The JAX package's live-plane escalation (a
-    critical alert forcing an out-of-cadence probe) is ROADMAP Queue A
-    item 14.
+    and rewinds ``it``.  A pending CRITICAL live-plane alert (`on_alert`,
+    subscribed by `guarded_time_loop`) forces the step-(3) probe out of
+    cadence at the next step.
 
     All knobs resolve kwarg > ``IGG_*`` env > default (the reference's
     configuration tiers); ``IGG_INTEGRITY=0`` force-disables the audit
@@ -1317,6 +1384,9 @@ class RunGuard:
         self._last_good: tuple | None = None
         self._last_good_step = 0
         self._injector = injector if injector is not None else get_fault_injector()
+        # A pending critical live-plane alert staged by `on_alert`; the
+        # next `on_step` consumes it as a forced out-of-cadence probe.
+        self._alert: dict | None = None
 
     @property
     def enabled(self) -> bool:
@@ -1357,12 +1427,23 @@ class RunGuard:
             self._last_good_step = it
         return state, it
 
-    def audit_snapshot(self, state: tuple, it: int) -> tuple | None:
-        """Pre-step state retained for the shadow audit of step ``it + 1``,
-        or None when that step is off-cadence.  Called by the loop BEFORE the
-        step executes; the snapshot owns fresh tensors (`snapshot_state`), so
-        the re-execution may update it in place."""
-        if not self.integrity_every or (it + 1) % self.integrity_every != 0:
+    def on_alert(self, alert: dict) -> None:
+        """Live-plane subscriber (`utils.liveplane.subscribe`): a CRITICAL
+        alert escalates into the guard — the next `on_step` runs the
+        NaN/Inf field probe immediately, out of cadence, under the
+        configured policy.  Warn-severity alerts stay observability-only.
+        One reference assignment (the engine may call from the scrape
+        thread)."""
+        if alert.get("severity") == "critical":
+            self._alert = alert
+
+    def audit_snapshot(self, state: tuple, it: int, steps: int = 1) -> tuple | None:
+        """Pre-step state retained for the shadow audit of the call that
+        takes step ``it`` to ``it + steps``, or None when that step is
+        off-cadence.  Called by the loop BEFORE the step executes; the
+        snapshot owns fresh tensors (`snapshot_state`), so the re-execution
+        may update it in place."""
+        if not self.integrity_every or (it + steps) % self.integrity_every != 0:
             return None
         return snapshot_state(state)
 
@@ -1379,7 +1460,19 @@ class RunGuard:
         state = self._injector.maybe_bit_flip(state, it, self.names)
         if replay is not None and replay[1] is not None:
             state = self._audit(state, it, replay)
-        do_guard = self.guard_every and it % self.guard_every == 0
+        escalated, self._alert = self._alert, None
+        if escalated is not None and _last_process_index() > 0:
+            # Several processes: `check_fields` is a collective and an
+            # alert is rank-local, so a probe keyed on it would diverge
+            # the ranks.  The alert event and the health view carry it.
+            escalated = None
+        if escalated is not None:
+            _telemetry.event(
+                "guard.alert_probe", step=it, rule=escalated.get("rule"),
+                severity=escalated.get("severity"),
+            )
+            _telemetry.counter("resilience.alert_probes").inc()
+        do_guard = (self.guard_every and it % self.guard_every == 0) or escalated is not None
         do_ckpt = self.checkpoint_every and it % self.checkpoint_every == 0
         # Checkpoints must only ever hold guard-passed state: when guarding
         # is on, a checkpoint step that falls between probe points is probed
@@ -1435,8 +1528,10 @@ class RunGuard:
         implicated = (
             report.implicated_ranks[0] if report.implicated_ranks else -1
         )
-        # The JAX package also dumps a ``reason=sdc`` flight bundle here
-        # (ROADMAP item 14).
+        _tracing.dump_flight_recorder(
+            "sdc", detector="shadow_audit", step=it, implicated_rank=implicated,
+            implicated_ranks=list(report.implicated_ranks), report=report.summary(),
+        )
         raise IntegrityError(
             f"shadow-step audit mismatch at step {it}: {report.summary()}. "
             f"The committed step and its re-execution from identical inputs "
@@ -1452,7 +1547,9 @@ class RunGuard:
             "guard.trip", step=it, policy=self.policy, report=report.summary()
         )
         _telemetry.counter("resilience.guard_trips").inc()
-        # The JAX package also dumps a flight bundle here (ROADMAP item 14).
+        _tracing.dump_flight_recorder(
+            "guard.trip", step=it, policy=self.policy, report=report.summary(),
+        )
         if self.policy == "raise":
             raise GuardError(msg, step=it, report=report)
         if self.policy == "warn":

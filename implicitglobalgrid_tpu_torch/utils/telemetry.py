@@ -1,9 +1,7 @@
-"""The port's metrics registry and event sink.
+"""The port's telemetry: metrics registry, event log and step loops.
 
-The JAX package's ``utils/telemetry.py`` is a whole observability plane
-(step loops, exposition, the live plane).  The port carries what the
-guard, checkpoint, integrity and serving code record, under the same
-names, so that a test reads ``snapshot()["counters"]["integrity.audits"]``
+The counterpart of the JAX package's ``utils/telemetry.py``, under the
+same names, so that a test reads ``snapshot()["counters"]["integrity.audits"]``
 or ``snapshot()["histograms"]["serving.round_seconds"]`` here as it does
 there:
 
@@ -14,16 +12,19 @@ there:
   `tenant_histogram` and `frontdoor_tenant_counter`;
 * `event` ``(etype, **payload)``: one rank-tagged JSON line appended to
   ``$IGG_TELEMETRY_DIR/events[.p<rank>].jsonl`` (nothing without the
-  variable);
+  variable); inside a request context the line carries its ``trace_id``;
+* `snapshot` (exported as ``telemetry_snapshot``), `prometheus_text` (a
+  pure function of a snapshot) and `dump_metrics` (both, to files);
+* `step_loop`: the models' per-step recorder — ``<model>.steps``,
+  ``.step_seconds``, ``.steps_per_s`` and the built-in ``T_eff`` from the
+  solver's bytes model (`teff_bytes`), plus the ``IGG_HEARTBEAT_EVERY``
+  heartbeat (the skew probe, ``proc.rss_bytes``, the live plane's tick
+  and the rank-0 stderr line);
 * `note_progress`/`last_progress`, `proc_rss_bytes`, `atomic_write_json`,
-  `teff_bytes`;
-* `snapshot`, `prometheus_text` (a pure function of a snapshot),
-  `process_count` and `reset`.
+  `set_rank_hint`, `process_count` and `reset`.
 
-``IGG_TELEMETRY=0`` turns metrics and events into no-ops.  Step telemetry,
-spans, the flight recorder and the live plane (scrape server, anomaly
-rules) are ROADMAP Queue A item 14; the serving front door serves
-``/metrics`` and ``/healthz`` from this registry until then.
+``IGG_TELEMETRY=0`` turns metrics and events into no-ops and `step_loop`
+returns None: the instrumented loops then allocate nothing per step.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import collections
 import json
 import os
 import random
+import sys
 import threading
 import time
 from typing import Any, Sequence
@@ -257,6 +259,14 @@ def gauge(name: str) -> Gauge | _Noop:
         return m
 
 
+def gauge_value(name: str) -> float | None:
+    """The value of gauge ``name`` if it exists (never creates one): the
+    heartbeat attaches skew and serving context only when published."""
+    with _lock:
+        g = _gauges.get(name)
+        return g.value if g is not None else None
+
+
 def histogram(name: str) -> Histogram | _Noop:
     """The histogram ``name`` (created on first use); `NOOP` when off."""
     if not enabled():
@@ -375,10 +385,26 @@ def process_count() -> int:
     return _dist.process_count()
 
 
-def _rank() -> int:
+# The rank during bring-up, before `torch.distributed` can answer:
+# `parallel.distributed.init_distributed` stages ``RANK`` here, so that
+# retry and fault events fired mid-bring-up land in the right per-rank file.
+_rank_hint: int | None = None
+
+
+def set_rank_hint(rank: int | None) -> None:
+    """Stage the process rank for event tagging during bring-up."""
+    global _rank_hint
+    _rank_hint = None if rank is None else int(rank)
+
+
+def _proc_index() -> int:
+    """The process rank: the process group's once it is up, else the
+    bring-up hint, else 0."""
     from ..parallel import distributed as _dist
 
-    return _dist.process_index()
+    if _dist.is_distributed_initialized():
+        return _dist.process_index()
+    return _rank_hint if _rank_hint is not None else 0
 
 
 def _grid_coords() -> list[int] | None:
@@ -393,21 +419,27 @@ def event(etype: str, **payload: Any) -> None:
     One ``os.write`` on an ``O_APPEND`` descriptor per line, so a line
     survives an ``os._exit`` right after it; values that JSON cannot hold
     are written as strings.  No-op unless telemetry is on and
-    ``IGG_TELEMETRY_DIR`` is set.  Where the JAX package also dumps a
-    flight-recorder bundle, the port records this event only (the flight
-    recorder is ROADMAP Queue A item 14).
+    ``IGG_TELEMETRY_DIR`` is set.  An event emitted inside a request
+    context (`utils.tracing.use_context`, a context-carrying span) carries
+    that request's ``trace_id``.
     """
     if not enabled():
         return
     directory = _config.telemetry_dir_env()
     if not directory:
         return
-    rank = _rank()
+    rank = _proc_index()
     rec = {"ts": time.time(), "type": etype, "rank": rank, "pid": os.getpid(),
            "coords": _grid_coords()}
     gen = _config.generation_env()
     if gen is not None:
         rec["gen"] = gen
+    if "trace_id" not in payload:
+        from . import tracing as _tracing  # tracing imports this module
+
+        ctx = _tracing.current_context()
+        if ctx is not None and "trace_id" in ctx:
+            rec["trace_id"] = ctx["trace_id"]
     rec.update(payload)
     line = json.dumps(rec, default=str) + "\n"
     key = (directory, "events.jsonl" if rank == 0 else f"events.p{rank}.jsonl")
@@ -454,7 +486,7 @@ def snapshot() -> dict:
     with _lock:
         return {
             "enabled": enabled(),
-            "rank": _rank(),
+            "rank": _proc_index(),
             "pid": os.getpid(),
             "ts": time.time(),
             "coords": _grid_coords(),
@@ -462,6 +494,10 @@ def snapshot() -> dict:
             "gauges": {n: g.value for n, g in _gauges.items()},
             "histograms": {n: h.summary() for n, h in _histograms.items()},
         }
+
+
+#: the public name (``igg.telemetry_snapshot``)
+telemetry_snapshot = snapshot
 
 
 def _prom_name(name: str) -> str:
@@ -493,10 +529,166 @@ def prometheus_text(snap: dict | None = None) -> str:
     return "\n".join(lines) + "\n"
 
 
+def dump_metrics(path) -> tuple[str, str]:
+    """Write the registry snapshot as JSON and Prometheus text:
+    ``<path>.json`` and ``<path>.prom`` (a ``path`` ending in ``.json``
+    keeps that name and the exposition drops the suffix).  Returns
+    ``(json_path, prom_path)``.  Exported as ``igg.dump_metrics``."""
+    path = os.fspath(path)
+    base = path[: -len(".json")] if path.endswith(".json") else path
+    json_path, prom_path = base + ".json", base + ".prom"
+    snap = snapshot()
+    d = os.path.dirname(base)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(json_path, "w") as f:
+        json.dump(snap, f, indent=1, default=str)
+    with open(prom_path, "w") as f:
+        f.write(prometheus_text(snap))
+    return json_path, prom_path
+
+
+# -- Step-loop instrumentation ------------------------------------------------
+
+
+class _StepLoop:
+    """Per-step recorder handed to the models' time loops (see `step_loop`)."""
+
+    def __init__(self, model: str, bytes_per_step: int | None, start_step: int,
+                 total_steps: int, heartbeat_every: int):
+        self.model = model
+        self.bytes_per_step = bytes_per_step
+        self.total_steps = total_steps
+        self.heartbeat_every = heartbeat_every
+        self._is_rank0 = _proc_index() == 0
+        self._steps = counter(f"{model}.steps")
+        self._step_s = histogram(f"{model}.step_seconds")
+        self._sps = gauge(f"{model}.steps_per_s")
+        self._teff = histogram(f"{model}.t_eff_gbs") if bytes_per_step else None
+        self._teff_g = gauge(f"{model}.t_eff_gbs_last") if bytes_per_step else None
+        self._t_last = time.perf_counter()
+        # last-window accumulator of the all-ranks skew probe (one window
+        # per heartbeat interval)
+        self._win_sum = 0.0
+        self._win_n = 0
+        # The live plane: the per-rank scrape server (no-op unless
+        # IGG_METRICS_PORT is set), and the pre-first-step mark that keeps
+        # the step-stall rule quiet through bring-up.  The JAX package
+        # also arms its device-timeline capture (`utils.profiling`) here:
+        # ROADMAP Queue A item 14d.
+        note_progress(model, start_step, init=True)
+        from . import liveplane as _liveplane
+
+        _liveplane.ensure_server()
+        event("run.start", model=model, start_step=start_step,
+              total_steps=total_steps, bytes_per_step=bytes_per_step)
+
+    def on_step(self, it: int, steps: int = 1) -> None:
+        """Record one loop call that advanced ``steps`` steps to step
+        ``it`` (wall time since the previous call).  A call of ``steps > 1``
+        steps (a fused group) records its time per step ``steps`` times;
+        the heartbeat fires when the call crossed a multiple of
+        ``IGG_HEARTBEAT_EVERY``.  With ``steps = 1`` this is the JAX
+        package's per-step record."""
+        now = time.perf_counter()
+        dt = (now - self._t_last) / steps
+        self._t_last = now
+        self._steps.inc(steps)
+        for _ in range(steps):
+            self._step_s.record(dt)
+        self._win_sum += dt * steps
+        self._win_n += steps
+        if dt > 0:
+            self._sps.set(1.0 / dt)
+        gbs = None
+        if self._teff is not None and dt > 0:
+            gbs = self.bytes_per_step / dt / 1e9
+            for _ in range(steps):
+                self._teff.record(gbs)
+            self._teff_g.set(gbs)
+        note_progress(self.model, it)
+        hb = self.heartbeat_every
+        if hb and it // hb > (it - steps) // hb:
+            # The skew probe is a collective: every rank runs it at the
+            # same step, outside the rank-0 gate (one process: no-op).
+            skew = None
+            if self._win_n:
+                from . import tracing as _tracing
+
+                skew = _tracing.skew_probe(self._win_sum / self._win_n)
+            self._win_sum = 0.0
+            self._win_n = 0
+            # The live-plane tick on every rank (local: no collective).
+            rss = proc_rss_bytes()
+            if rss is not None:
+                gauge("proc.rss_bytes").set(rss)
+            from . import liveplane as _liveplane
+
+            _liveplane.heartbeat_tick(model=self.model)
+            if self._is_rank0:
+                teff_s = f" T_eff {gbs:.2f} GB/s" if gbs is not None else ""
+                skew_s = (f" skew {skew['ratio']:.2f} (slowest rank "
+                          f"{skew['slowest_rank']})" if skew else "")
+                print(
+                    f"[igg.telemetry] {self.model} step {it}/{self.total_steps} "
+                    f"{dt * 1e3:.2f} ms/step {1.0 / dt if dt > 0 else 0.0:.1f} "
+                    f"steps/s{teff_s}{skew_s}",
+                    file=sys.stderr, flush=True,
+                )
+                event("heartbeat", model=self.model, step=it, step_seconds=dt,
+                      t_eff_gbs=gbs, **_heartbeat_context(skew))
+
+    def finish(self, it: int) -> None:
+        note_progress(self.model, it, done=True)
+        event("run.complete", model=self.model, step=it)
+
+
+def _heartbeat_context(skew: dict | None) -> dict:
+    """The heartbeat event's context: the skew gauges (this probe's result,
+    else the last published), the serving pool's occupancy and the live
+    plane's port — each only when something recorded it."""
+    ctx: dict = {}
+    if skew is not None:
+        ctx["skew"] = {"step_seconds_max_over_min": skew["ratio"],
+                       "slowest_rank": skew["slowest_rank"]}
+    else:
+        ratio = gauge_value("skew.step_seconds_max_over_min")
+        if ratio is not None:
+            ctx["skew"] = {"step_seconds_max_over_min": ratio,
+                           "slowest_rank": gauge_value("skew.slowest_rank")}
+    active = gauge_value("serving.active_members")
+    if active is not None:
+        ctx["serving"] = {"active_members": active,
+                          "queue_depth": gauge_value("serving.queue_depth")}
+    port = gauge_value("liveplane.port")
+    if port is not None:
+        ctx["liveplane"] = {"port": int(port)}
+    return ctx
+
+
+def step_loop(model: str, *, bytes_per_step: int | None = None, start_step: int = 0,
+              total_steps: int = 0) -> _StepLoop | None:
+    """A per-step recorder for a host-side time loop, or ``None`` when
+    telemetry is off.
+
+    The ``None`` return is the zero-overhead contract: the caller's loop
+    guards every telemetry touch behind ``if tele is not None``.
+    ``bytes_per_step`` (`teff_bytes`) switches on the built-in ``T_eff``;
+    the heartbeat cadence comes from ``IGG_HEARTBEAT_EVERY``.  The loop's
+    wall time per step is host time: on the card the loop never waits for
+    the device, so it is the dispatch time until the CUDA queue fills and
+    the device's pace after that (amortized, as in the JAX package).
+    """
+    if not enabled():
+        return None
+    hb = _config.heartbeat_every_env() or 0
+    return _StepLoop(model, bytes_per_step, start_step, total_steps, hb)
+
+
 def reset() -> None:
-    """Drop every metric and the progress record, and close the event logs
-    (test hook)."""
-    global _progress
+    """Drop every metric, the progress record and the rank hint, and close
+    the event logs (test hook)."""
+    global _progress, _rank_hint
     with _lock:
         _counters.clear()
         _gauges.clear()
@@ -508,3 +700,4 @@ def reset() -> None:
                 pass
         _event_fds.clear()
     _progress = None
+    _rank_hint = None

@@ -7,8 +7,8 @@
   HTTP surface on a loopback ephemeral port (roundtrip, validation 400s,
   429s, the p99 SLO gate, 413/400 hardening, socket timeouts), graceful
   drain, resize + `elastic_resume` bit-identical, retention bounds.  The
-  JAX tests that arm an anomaly rule have no port counterpart yet: the rule
-  engine is ROADMAP Queue A item 14.
+  JAX tests that arm an anomaly rule have their counterparts in
+  `tests/test_torch_liveplane.py`, beside the port's rule engine.
 * The pure functions against JAX's on identical synthetic views:
   `admission.decide`, `retry_after_s`, `autoscale.decide`; the knobs'
   parsing and errors; `prometheus_text` of the same snapshot; and
@@ -52,14 +52,16 @@ from implicitglobalgrid_tpu_torch.serving import admission as adm
 from implicitglobalgrid_tpu_torch.serving import autoscale as asc
 from implicitglobalgrid_tpu_torch.serving import frontdoor as fdm
 from implicitglobalgrid_tpu_torch.utils import config as tconfig
+from implicitglobalgrid_tpu_torch.utils import liveplane
 from implicitglobalgrid_tpu_torch.utils import resilience
 from implicitglobalgrid_tpu_torch.utils import telemetry as tele
+from implicitglobalgrid_tpu_torch.utils import tracing
 
 KNOBS = ("IGG_TENANT_QUOTA", "IGG_FRONTDOOR_QUEUE_MAX", "IGG_FRONTDOOR_SLO_P99_S",
          "IGG_AUTOSCALE_QUEUE_HIGH", "IGG_AUTOSCALE_SUSTAIN", "IGG_SERVE_PORT",
          "IGG_SERVE_HOST", "IGG_RESULT_KEEP", "IGG_RESULT_TTL_S", "IGG_SERVE_MAX_BODY",
          "IGG_TELEMETRY_MAX_TENANTS", "IGG_FAULT_INJECT", "IGG_BATCH", "IGG_BATCH_ROUND_STEPS",
-         "IGG_HEARTBEAT_EVERY")
+         "IGG_HEARTBEAT_EVERY", "IGG_TRACE_RING", "IGG_TRACE_SAMPLE")
 
 
 @pytest.fixture(autouse=True)
@@ -67,10 +69,14 @@ def _fresh_state(monkeypatch):
     for knob in KNOBS:
         monkeypatch.delenv(knob, raising=False)
     tele.reset()
+    tracing.reset()
+    liveplane.reset()
     yield
     if tigg.grid_is_initialized():
         tigg.finalize_global_grid()
     tele.reset()
+    tracing.reset()
+    liveplane.reset()
 
 
 NX = 8
@@ -188,7 +194,7 @@ def test_gauge_view_reads_live_registry():
     assert view["queue_depth"] == 9 and view["active_members"] == 3
     assert view["capacity"] == 4 and view["round_p50_s"] == 0.2
     assert view["round_p99_s"] == 0.3
-    assert view["critical_alert"] is False  # no rule engine before item 14
+    assert view["critical_alert"] is False  # no progress record: no rule fires
 
 
 # -- the pure functions against the JAX package's -------------------------------
@@ -392,18 +398,34 @@ def test_http_submit_result_status_roundtrip():
         fd.close()
 
 
-def test_http_traceparent_is_echoed_verbatim():
+def test_http_traceparent_is_echoed_verbatim(monkeypatch):
+    """With span recording off (``IGG_TRACE_RING=0``) the door echoes an
+    inbound ``traceparent`` verbatim and ledgers no context (the JAX
+    door's pure passthrough); with it on, the echo keeps the trace id under
+    the door's own span id, which `trace_header` serves."""
     loop = _pool(capacity=1)
     fd = _door(loop)
-    try:
-        tp = "00-0af7651916cd43dd8448eb211c80319c-b7ad6b7169203331-01"
+    tp = "00-0af7651916cd43dd8448eb211c80319c-b7ad6b7169203331-01"
+
+    def submit():
         req = urllib.request.Request(
             f"http://127.0.0.1:{fd.port}/v1/submit",
             data=json.dumps({"params": {"max_steps": 1}}).encode(),
             headers={"Content-Type": "application/json", "traceparent": tp})
         with urllib.request.urlopen(req, timeout=10) as r:
-            assert r.status == 202 and r.headers["traceparent"] == tp
-        assert fd.trace_header("r000000") is None  # no context ledgered (item 14)
+            return r.status, r.headers["traceparent"], json.loads(r.read())["request_id"]
+
+    try:
+        monkeypatch.setenv("IGG_TRACE_RING", "0")
+        code, echo, rid = submit()
+        assert code == 202 and echo == tp
+        assert fd.trace_header(rid) is None
+        monkeypatch.delenv("IGG_TRACE_RING")
+        code, echo, rid = submit()
+        got = tracing.parse_traceparent(echo)
+        assert code == 202 and got["trace_id"] == tp.split("-")[1]
+        assert got["span_id"] != tp.split("-")[2]
+        assert fd.trace_header(rid) == {"traceparent": echo}
     finally:
         fd.close()
 

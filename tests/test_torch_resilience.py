@@ -440,11 +440,10 @@ def test_fault_set_and_injector_defaults(clean_env):
 def test_stall_and_net_delay_fire_once_after_their_step(clean_env, fault_injection,
                                                         monkeypatch):
     """``stall`` sleeps on the target process after its step; ``net_delay``
-    arms a sleep before this rank's next exchange (one process: the last
-    process is rank 0)."""
+    arms a sleep before this rank's next host collective, here its next
+    exchange (one process: the last process is rank 0)."""
     slept = []
-    monkeypatch.setattr(res.time, "sleep", slept.append)
-    monkeypatch.setattr(thalo.time, "sleep", slept.append)
+    monkeypatch.setattr(res.time, "sleep", slept.append)  # the one time.sleep
     monkeypatch.setattr(res.FaultInjector, "STALL_S", 0.25)
     monkeypatch.setattr(res.FaultInjector, "NET_DELAY_S", 0.5)
     fault_injection("stall:step1,net_delay:step2")
@@ -563,8 +562,8 @@ def test_telemetry_event_log(clean_env, monkeypatch, tmp_path, fault_injection):
     tele.reset()
     events = tele.read_events(tmp_path / "events.jsonl")
     kinds = [e["type"] for e in events]
-    assert kinds == ["fault.halo_corrupt", "guard.trip"]
-    assert events[1]["step"] == 1 and events[1]["rank"] == 0
+    assert kinds == ["clock.sync", "run.start", "fault.halo_corrupt", "guard.trip"]
+    assert events[3]["step"] == 1 and events[3]["rank"] == 0
     monkeypatch.setenv("IGG_TELEMETRY", "0")
     assert tele.counter("x") is tele.NOOP
 
