@@ -192,6 +192,39 @@ and then prints no result line):
    phases 10-12 is printed.  Events, traces and flight bundles go to a
    temporary directory that the phase removes, and every variable it sets is
    restored.
+13. The device timeline (``utils.profiling`` over ``torch.profiler``).
+   (a) ``IGG_PROFILE=steps:4-12`` (porous: ``steps:1-2``, its two steps) over
+   each main path's ``run()`` at phase 12a's configs, telemetry on: the
+   capture meta lands, the trace parses, it holds device ops, the model's
+   ``fused_*_kernel`` is under ``kernels`` with its device seconds,
+   ``igg_halo_exchange`` is attributed, and no ``profile.capture_failed``
+   event is written; printed per model: the scope table, the kernel's share
+   of the device's busy time (porous: and the T update's) beside the
+   CUDA-event shares of phases 3, 5 and 6, the device-idle share under
+   capture, 1 - |union of the device ops' intervals| / the capture window's
+   wall time (the profiler's host cost included), and an uncaptured
+   estimate, 1 - the profiled busy time per step / phases 3, 5 and 6's
+   CUDA-event ms per step of the bare loop.
+   (b) ``igg.profile_trace`` around one pipelined group of 7b's diffusion
+   twin attributes ``igg_ring_pass`` and ``igg_interior_pass``, and its
+   overlap fraction is None (no NCCL on one card).  (c) Two captures back to
+   back, one left open by a guard trip (``halo_corrupt:step8`` under
+   ``guard_policy="raise"``, closed by the guarded loop's exit path with
+   reason ``scope_exit``), then a fourth capture that starts and parses.
+14. The supervisor and the fleet over child processes on the card
+   (``python -m implicitglobalgrid_tpu_torch._workers``).  (a) A
+   ``RunSupervisor`` over one rank of diffusion ``run()`` at phase 3's config
+   with ``checkpoint_every=4`` under ``worker_crash:step8:proc0``: the
+   incident is a ``crash`` (exit status 17), the second incarnation resumes
+   at step 8, its final T equals an uncrashed run's bit for bit, and the
+   seconds from the crash to the resumed step are printed.  (b) A
+   ``FleetController`` of two pools, each a child process with a
+   ``FrontDoor`` over a capacity-2 diffusion pool at 11a's config on device
+   0, behind a ``FleetRouter`` on 127.0.0.1: two requests through the router,
+   then the pool holding the first is killed; the router fails over, one
+   respawn, and every result's digest equals a direct ``ServingLoop`` run's;
+   the failover seconds are printed.  Every child is stopped, and checked
+   reaped, before the phase ends; its directories are removed.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -241,6 +274,24 @@ KERNELS = {
     "fused_pt_iterations": ("fused_pt", "implicitglobalgrid_tpu/ops/pallas_pt.py:131"),
 }
 SOURCES = tuple(src for src, _ in KERNELS.values())
+#: The three main paths' ``run()`` at phases 3, 5 and 6's configs (256^3
+#: float32), read by phases 12a, 13a and 14a and by ``chip_run_turns.py``:
+#: model -> run kwargs, nt, its kernel, the kernel's name in a device trace,
+#: launches in one ``run()``, steps a loop call, phase 13a's profile window.
+MAIN_RUNS = {
+    "diffusion3d": dict(
+        kw=dict(fused_k=4, periodx=1, periody=1, periodz=1, overlapx=8, overlapy=8, overlapz=8),
+        nt=16, kernel="fused_diffusion_steps", label="fused_diffusion_kernel", launches=4,
+        per_call=4, window="steps:4-12"),
+    "acoustic3d": dict(
+        kw=dict(fused_k=6, periodz=1, overlapx=12, overlapy=12, overlapz=12),
+        nt=24, kernel="fused_leapfrog_steps", label="fused_leapfrog_kernel", launches=4,
+        per_call=6, window="steps:4-12"),
+    "porous_convection3d": dict(
+        kw=dict(npt=12, fused_k=6, periodz=1, overlapx=14, overlapy=14, overlapz=14),
+        nt=2, kernel="fused_pt_iterations", label="fused_pt_kernel", launches=4, per_call=1,
+        window="steps:1-2"),
+}
 
 #: the phase running now, and every live-plane alert fired since phase 10
 #: with the phase it fired in
@@ -497,6 +548,9 @@ def main() -> None:
     teff = 2 * nbytes(T0) / (step_ms * 1e-3) / 1e9
     plain_teff = 2 * nbytes(T0) / (plain_step_ms * 1e-3) / 1e9
     main_teff = {"diffusion3d": teff}  # phase 12a prints the step loop's beside these
+    # phase 13a prints the profiled device split beside these CUDA-event shares
+    main_split = {"diffusion3d": {"fused_diffusion_kernel": kernel_ms / (k * step_ms)}}
+    main_step_ms = {"diffusion3d": step_ms}  # phase 13a sets the profiled busy time beside it
     buf = T0.clone()
     exchange_ms = cuda_ms(torch, lambda: igg.update_halo(buf, width=k), reps=10)
     del buf
@@ -587,6 +641,8 @@ def main() -> None:
     teff = 2 * nbytes(*state) / (step_ms * 1e-3) / 1e9
     plain_teff = 2 * nbytes(*state) / (plain_step_ms * 1e-3) / 1e9
     main_teff["acoustic3d"] = teff
+    main_split["acoustic3d"] = {"fused_leapfrog_kernel": kernel_ms / (k * step_ms)}
+    main_step_ms["acoustic3d"] = step_ms
     bufs = [a.clone() for a in state]
     exchange_ms = cuda_ms(torch, lambda: igg.update_halo(*bufs, width=k), reps=10)
     del bufs
@@ -654,6 +710,7 @@ def main() -> None:
               f"plain cadence exchange_every=6 {plain_step_ms!r} ms/step {card}")
         if main:
             main_teff["porous_convection3d"] = teff
+            main_step_ms["porous_convection3d"] = step_ms
             T, *s = state
             p = params
             co = (p.theta_q, 1.0 / p.dx, 1.0 / p.dy, 1.0 / p.dz, p.Ra * p.lam_T, p.beta_p)
@@ -672,6 +729,8 @@ def main() -> None:
                   f"version {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}) {card}")
             t_update = porous_convection3d._temperature_update(params)
             t_ms = cuda_ms(torch, lambda: t_update(T, *s[1:]), reps=5)
+            main_split["porous_convection3d"] = {"fused_pt_kernel": 2 * kernel_ms / step_ms,
+                                                 "T update": t_ms / step_ms}
             bufs = [a.clone() for a in s]
             exchange_ms = cuda_ms(torch, lambda: igg.update_halo(*bufs, width=w), reps=10)
             t_exchange_ms = cuda_ms(torch, lambda: igg.update_halo(bufs[0]), reps=10)
@@ -701,8 +760,12 @@ def main() -> None:
     phase11(torch, igg, reset_counts, counts, card)
     PHASE[0] = "12"
     phase12(torch, igg, reset_counts, counts, card, main_teff)
+    PHASE[0] = "13"
+    phase13(torch, igg, reset_counts, counts, card, main_split, main_step_ms)
+    PHASE[0] = "14"
+    phase14(torch, igg, reset_counts, counts, card)
 
-    print(f"chip_smoke: phases 1-12 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(f"chip_smoke: phases 1-14 passed in {time.perf_counter() - t_start!r} s {card}")
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1803,15 +1866,11 @@ def phase12(torch, igg, reset_counts, counts, card, main_teff) -> None:
     n, f32 = 256, torch.float32
     ov = lambda o: dict(overlapx=o, overlapy=o, overlapz=o)  # noqa: E731
     xyz = dict(periodx=1, periody=1, periodz=1)
+    modules = {"diffusion3d": diffusion3d, "acoustic3d": acoustic3d,
+               "porous_convection3d": porous_convection3d}
     #: (model name, module, run kwargs, nt, kernel, launches, steps a loop call)
-    runs = [
-        ("diffusion3d", diffusion3d, dict(fused_k=4, **xyz, **ov(8)), 16,
-         "fused_diffusion_steps", 4, 4),
-        ("acoustic3d", acoustic3d, dict(fused_k=6, periodz=1, **ov(12)), 24,
-         "fused_leapfrog_steps", 4, 6),
-        ("porous_convection3d", porous_convection3d,
-         dict(npt=12, fused_k=6, periodz=1, **ov(14)), 2, "fused_pt_iterations", 4, 1),
-    ]
+    runs = [(name, modules[name], r["kw"], r["nt"], r["kernel"], r["launches"], r["per_call"])
+            for name, r in MAIN_RUNS.items()]
     work = Path(tempfile.mkdtemp(prefix="igg_phase12_"))
 
     def run(model, kw, nt, **env):
@@ -2042,6 +2101,337 @@ def phase12(torch, igg, reset_counts, counts, card, main_teff) -> None:
     finally:
         tele.reset()  # closes the event logs under the temporary directory
         shutil.rmtree(work, ignore_errors=True)
+
+
+def phase13(torch, igg, reset_counts, counts, card, main_split, main_step_ms) -> None:
+    """Phase 13: the device timeline over `torch.profiler` (see the module
+    docstring)."""
+    from implicitglobalgrid_tpu_torch.models import diffusion3d, acoustic3d, porous_convection3d
+    from implicitglobalgrid_tpu_torch.utils import profiling
+    from implicitglobalgrid_tpu_torch.utils import resilience as res
+    from implicitglobalgrid_tpu_torch.utils import telemetry as tele
+
+    n, f32 = 256, torch.float32
+    ov = lambda o: dict(overlapx=o, overlapy=o, overlapz=o)  # noqa: E731
+    xyz = dict(periodx=1, periody=1, periodz=1)
+    work = Path(tempfile.mkdtemp(prefix="igg_phase13_"))
+    failed = []  # every profile.capture_failed event of the phase
+
+    def capture_events(tdir):
+        evs = tele.read_events(Path(tdir) / "events.jsonl") \
+            if (Path(tdir) / "events.jsonl").is_file() else []
+        failed.extend(e for e in evs if e["type"] == "profile.capture_failed")
+        return evs
+
+    def show(label, rec):
+        for line in profiling.render_attribution_table(rec).splitlines():
+            print(f"phase 13{label}: {line}")
+
+    try:
+        # -- 13a: IGG_PROFILE over each main path's run() ---------------------
+        modules = {"diffusion3d": diffusion3d, "acoustic3d": acoustic3d,
+                   "porous_convection3d": porous_convection3d}
+        for name, r in MAIN_RUNS.items():
+            model, kw, nt, window = modules[name], r["kw"], r["nt"], r["window"]
+            kernel, label = r["kernel"], r["label"]
+            tdir = work / name
+            tele.reset()
+            profiling.reset()
+            reset_counts()
+            t0 = time.perf_counter()
+            with fault_env(res, IGG_PROFILE=window, IGG_TELEMETRY_DIR=str(tdir),
+                           IGG_PROFILE_DIR=None):
+                out = model.run(nt, n, n, n, dtype=f32, quiet=True, **kw)
+            run_s = time.perf_counter() - t0
+            c = counts()
+            capture_events(tdir)
+            meta_path = tdir / "profile.p0.json"
+            if not meta_path.is_file():
+                fail(f"13a: {name}: no capture meta (events: {failed})")
+            meta = json.loads(meta_path.read_text())
+            rec = profiling.attribute_trace(meta["trace_path"])  # parses, or raises
+            wall = meta["t_stop_perf"] - meta["t_start_perf"]
+            idle = 1.0 - rec["busy_seconds"] / wall
+            kern_s = rec["op_seconds"].get("kernels", {}).get(label, 0.0)
+            shares = {label: kern_s / rec["busy_seconds"]} if rec["busy_seconds"] else {}
+            if name == "porous_convection3d":
+                shares["T update"] = (rec["scope_seconds"].get("kernels", 0.0)
+                                      + rec["scope_seconds"].get("glue", 0.0)
+                                      - kern_s) / rec["busy_seconds"]
+            steps = meta["stopped_at_step"] - meta["started_at_step"] + 1
+            busy_ms = rec["busy_seconds"] / steps * 1e3
+            print(f"phase 13a: {name} 256^3 f32 run({nt}, {kw}) under IGG_PROFILE={window}: "
+                  f"{run_s * 1e3!r} ms (first capture pays the profiler's start-up); launches "
+                  f"{c}; capture steps {meta['started_at_step']}-{meta['stopped_at_step']} "
+                  f"({meta['reason']}), {rec['n_device_ops']} device ops, device busy "
+                  f"{rec['busy_seconds'] * 1e3!r} ms of a {wall * 1e3!r} ms window "
+                  f"({busy_ms!r} of {wall / steps * 1e3!r} ms a step): device-idle share "
+                  f"under capture {idle!r}; uncaptured estimate 1 - busy / the bare loop's "
+                  f"CUDA-event ms per step of phases 3/5/6 ({main_step_ms[name]!r}): "
+                  f"{1.0 - busy_ms / main_step_ms[name]!r} {card}")
+            show("a", rec)
+            print(f"phase 13a: {name} device split in the window: {shares!r} of the busy time "
+                  f"(profiled) vs the CUDA-event shares of phases 3/5/6 "
+                  f"{main_split.get(name)!r}; ops by bucket "
+                  f"{ {b: sorted(v) for b, v in rec['op_seconds'].items()} } {card}")
+            if rec["n_device_ops"] <= 0 or kern_s <= 0 \
+                    or rec["scope_seconds"].get("igg_halo_exchange", 0.0) <= 0 \
+                    or not torch.isfinite(out).all() or c[kernel] <= 0 or failed:
+                fail(f"13a: {name}: {rec['n_device_ops']} device ops, {label} {kern_s!r} s, "
+                     f"scopes {rec['scope_seconds']}, launches {c}, failed captures {failed}")
+            del out
+
+        # -- 13b: profile_trace around one pipelined group -------------------
+        state, params = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, **xyz, **ov(8))
+        piped = diffusion3d.make_multi_step(params, 4, fused_k=4, pipelined=True)
+        piped(*state)  # warm-up (allocator, streams)
+        reset_counts()
+        with igg.profile_trace(work / "group"):
+            piped(*state)
+        c = counts()
+        rec = profiling.attribute_capture(work / "group")
+        show("b", rec)
+        print(f"phase 13b: one pipelined group of 7b's diffusion twin (256^3 f32 periodic x/y/z "
+              f"overlap 8, fused_k=4) under profile_trace: launches {c}, scopes "
+              f"{sorted(rec['scope_seconds'])}, overlap fraction {rec['overlap']['fraction']!r}, "
+              f"ops by bucket { {b: sorted(v) for b, v in rec['op_seconds'].items()} } {card}")
+        if not {"igg_ring_pass", "igg_interior_pass"} <= set(rec["scope_seconds"]) \
+                or rec["overlap"]["fraction"] is not None or c["fused_diffusion_steps"] != 2:
+            fail(f"13b: scopes {rec['scope_seconds']}, overlap {rec['overlap']}, launches {c}")
+        igg.finalize_global_grid()
+        del state, piped
+
+        # -- 13c: captures back to back, one left open by a guard trip -------
+        (T0, Cp), params = diffusion3d.setup(64, 64, 64, dtype=f32, quiet=True, **xyz, **ov(8))
+        step = diffusion3d.make_multi_step(params, 4, fused_k=4)
+        parsed = []
+        for i in (1, 2):
+            with igg.profile_trace(work / f"c{i}"):
+                step(T0, Cp)
+            parsed.append(profiling.attribute_capture(work / f"c{i}")["n_device_ops"])
+        igg.finalize_global_grid()
+        tdir = work / "trip"
+        tele.reset()
+        profiling.reset()
+        trip = None
+        with fault_env(res, IGG_PROFILE="steps:1-16", IGG_TELEMETRY_DIR=str(tdir),
+                       IGG_PROFILE_DIR=None, IGG_FAULT_INJECT="halo_corrupt:step8"):
+            try:
+                diffusion3d.run(16, 64, 64, 64, dtype=f32, quiet=True, fused_k=4, guard_every=4,
+                                guard_policy="raise", **xyz, **ov(8))
+            except res.GuardError as e:
+                trip = e.step
+        capture_events(tdir)
+        meta = json.loads((tdir / "profile.p0.json").read_text())
+        tripped = profiling.attribute_trace(meta["trace_path"])["n_device_ops"]
+        (T0, Cp), params = diffusion3d.setup(64, 64, 64, dtype=f32, quiet=True, **xyz, **ov(8))
+        step = diffusion3d.make_multi_step(params, 4, fused_k=4)
+        with igg.profile_trace(work / "c4"):
+            step(T0, Cp)
+        fourth = profiling.attribute_capture(work / "c4")["n_device_ops"]
+        igg.finalize_global_grid()
+        print(f"phase 13c: two profile_trace captures back to back: {parsed} device ops; a "
+              f"guard trip (halo_corrupt:step8, guard_policy=raise) at step {trip} inside "
+              f"IGG_PROFILE=steps:1-16: capture closed with reason {meta['reason']!r} at step "
+              f"{meta['stopped_at_step']}, {tripped} device ops; a fourth capture after it: "
+              f"{fourth} device ops; capture_failed events in phase 13: {len(failed)}")
+        if min(parsed) <= 0 or trip != 8 or meta["reason"] != "scope_exit" or tripped <= 0 \
+                or fourth <= 0 or failed or profiling._capturing:
+            fail(f"13c: captures {parsed}, trip {trip}, meta {meta['reason']}, {tripped}, "
+                 f"fourth {fourth}, failed {failed}")
+    finally:
+        profiling.reset()
+        tele.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase14(torch, igg, reset_counts, counts, card, n=256, device="cuda") -> None:
+    """Phase 14: the supervisor and the fleet over processes on the card
+    (see the module docstring).  ``n`` and ``device`` exist for a rehearsal
+    of the phase at a small size on the CPU."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from implicitglobalgrid_tpu_torch.fleet import FleetController, FleetRouter, PoolSpec
+    from implicitglobalgrid_tpu_torch.models import diffusion3d
+    from implicitglobalgrid_tpu_torch.serving import Request, ServingLoop
+    from implicitglobalgrid_tpu_torch.serving import frontdoor as fdm
+    from implicitglobalgrid_tpu_torch.supervisor import RecoveryPolicy, RunSupervisor
+    from implicitglobalgrid_tpu_torch.utils import resilience as res
+    from implicitglobalgrid_tpu_torch.utils import telemetry as tele
+
+    f32 = torch.float32
+    grid = dict(periodx=1, periody=1, periodz=1, overlapx=8, overlapy=8, overlapz=8)
+    work = Path(tempfile.mkdtemp(prefix="igg_phase14_"))
+    child_env = {"PYTHONPATH": str(ROOT)}
+    children = []  # every process the phase started, checked reaped at its end
+
+    def task_file(name, task):
+        d = work / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "task.json").write_text(json.dumps(dict(task, workdir=str(d))))
+        return d
+
+    def command(d):
+        return [sys.executable, "-m", "implicitglobalgrid_tpu_torch._workers",
+                str(d / "task.json")]
+
+    fc = None
+    try:
+        # -- 14a: RunSupervisor over one rank of diffusion run() -------------
+        kw = dict(MAIN_RUNS["diffusion3d"]["kw"], checkpoint_every=4)
+        d = task_file("run", {"kind": "run", "model": "diffusion3d", "args": [16, n, n, n],
+                              "kw": dict(kw, checkpoint_dir=str(work / "run" / "ckpt")),
+                              "device": device, "dtype": "float32"})
+        tdir = work / "run-tele"
+        rsup = RunSupervisor(lambda rank, nranks, rung, gen: command(d), ladder=[1],
+                             workdir=str(d), telemetry_dir=str(tdir),
+                             policy=RecoveryPolicy(max_restarts=1, backoff_s=0.5),
+                             fault_spec="worker_crash:step8:proc0", env=child_env,
+                             poll_s=0.1, name="diffusion")
+        launch = rsup.launch
+
+        def tracked_launch():
+            inc = launch()
+            children.extend(inc.procs)
+            return inc
+
+        rsup.launch = tracked_launch
+        t0 = time.perf_counter()
+        report = rsup.run(timeout=300)
+        sup_s = time.perf_counter() - t0
+        events = tele.read_events(tdir / "events.jsonl")
+        crash = [e for e in events if e["type"] == "fault.worker_crash"]
+        starts = [e for e in events if e["type"] == "run.start"]
+        resumed = [e for e in starts if e.get("gen") == 1]
+        got = np.load(d / "out_rank0.npz")["out"] if (d / "out_rank0.npz").is_file() else None
+        want = diffusion3d.run(16, n, n, n, dtype=f32, quiet=True, device=device,
+                               **MAIN_RUNS["diffusion3d"]["kw"])
+        same = got is not None and np.array_equal(got, want.cpu().numpy())
+        legs = [(i["kind"], i["rcs"], i["decision"]["action"]) for i in report.incidents]
+        recovery_s = resumed[0]["ts"] - crash[0]["ts"] if crash and resumed else None
+        print(f"phase 14a: RunSupervisor over one port rank, diffusion {n}^3 f32 run(16, "
+              f"{kw}) under worker_crash:step8:proc0: {report.summary()}; incidents {legs}; "
+              f"incident detail {report.incidents[0]['detail'] if report.incidents else None}; "
+              f"run.start steps by generation {[(e.get('gen'), e['start_step']) for e in starts]}; "
+              f"final T bit for bit the uncrashed run's: {same}; crash to resumed step "
+              f"{recovery_s!r} s (supervised run {sup_s!r} s) {card}")
+        if not report.ok or legs[:1] != [("crash", [17], "restart")] or len(crash) != 1 \
+                or crash[0]["step"] != 8 or [e["start_step"] for e in resumed] != [8] \
+                or not same:
+            fail(f"14a: {report.summary()}, {legs}, crash {crash}, starts {starts}, "
+                 f"bit-identical {same}; logs "
+                 f"{[p.read_text()[-1500:] for p in sorted(d.glob('*.log'))]}")
+        del want
+
+        # -- 14b: a FleetController of two pools behind a FleetRouter --------
+        pool_task = {"kind": "pool", "nxyz": [n, n, n], "grid": grid, "capacity": 2,
+                     "steps_per_round": 4, "step_kwargs": {"fused_k": 4}, "device": device,
+                     "dtype": "float32"}
+        specs = []
+        for name in ("a", "b"):
+            pd = task_file(f"pool-{name}", pool_task)
+            specs.append(PoolSpec(name=name, command_for=lambda spec, gen, pd=pd: command(pd),
+                                  workdir=str(pd), telemetry_dir=str(pd / "telemetry"),
+                                  key={"model": "diffusion3d"}, devices="0",
+                                  env=dict(child_env)))
+        ftele = work / "fleet-tele"
+        router = FleetRouter(port=0, host="127.0.0.1")
+        with fault_env(res, IGG_TELEMETRY_DIR=str(ftele)):
+            fc = FleetController(specs, router=router, poll_s=0.1)
+            spawn = fc.spawn
+
+            def tracked_spawn(argv, env, log_path):
+                proc = spawn(argv, env, log_path)
+                children.append(proc)
+                return proc
+
+            fc.spawn = tracked_spawn
+            t0 = time.perf_counter()
+            fc.launch(wait_s=120.0)
+            up_s = time.perf_counter() - t0
+            if sorted(router.pools) != ["a", "b"]:
+                fail(f"14b: pools up {sorted(router.pools)}; logs "
+                     f"{[p.read_text()[-1500:] for p in sorted(work.glob('pool-*/*.log'))]}")
+
+            def http(path, doc=None):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{router.port}{path}",
+                    data=None if doc is None else json.dumps(doc).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    return json.loads(r.read())
+
+            asks = [(1.1, 8), (1.2, 8)]
+            fids = [http("/v1/submit", {"tenant": "chip", "model": "diffusion3d", "params": {
+                "max_steps": b, "ic_scale": s}})["request_id"] for s, b in asks]
+            owners = [router.routes[f]["pool"] for f in fids]
+            victim = owners[0]
+            t_kill = time.time()
+            fc.handles[victim].proc.kill()
+            fc.handles[victim].proc.wait(timeout=30)
+            sweep = threading.Thread(target=lambda: decisions.extend(fc.poll_once()),
+                                     daemon=True)
+            decisions = []
+            sweep.start()
+            views, t_done = {}, {}
+            deadline = time.monotonic() + 180
+            while len(t_done) < len(fids) and time.monotonic() < deadline:
+                for f in fids:
+                    if f not in t_done:
+                        view = http(f"/v1/result/{f}")
+                        if view.get("status") == "done":
+                            views[f], t_done[f] = view, time.time()
+                time.sleep(0.05)
+            sweep.join(timeout=180)
+            respawns = fc.state.respawns.get(victim, 0)
+            fevents = tele.read_events(ftele / "events.jsonl")
+        reroute = [e for e in fevents if e["type"] == "fleet.reroute"]
+        recovered = [e for e in fevents if e["type"] == "fleet.recovered"]
+        # the direct run: one ServingLoop in this process, the same requests
+        _, params = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, device=device, **grid)
+        loop = ServingLoop(diffusion3d, params, capacity=2, steps_per_round=4,
+                           step_kwargs={"fused_k": 4})
+        ids = [loop.submit(Request(state=diffusion3d.setup(
+            n, n, n, init_grid=False, dtype=f32, ic_scale=s)[0], max_steps=b)) for s, b in asks]
+        while loop.queue or loop.active_members:
+            loop.run_round()
+        direct = [fdm.state_digest(loop.results[m].state) for m in ids]
+        del loop
+        igg.finalize_global_grid()
+        moved = [f for f, o in zip(fids, owners) if o == victim]
+        agree = [views.get(f, {}).get("digest") == dg for f, dg in zip(fids, direct)]
+        print(f"phase 14b: FleetController of two diffusion pools ({n}^3 f32 periodic x/y/z "
+              f"overlap 8, capacity 2, 4 steps a round, one process each on device 0) behind "
+              f"a FleetRouter on 127.0.0.1:{router.port}: up in {up_s!r} s; requests "
+              f"{dict(zip(fids, owners))}; pool {victim} killed; decisions "
+              f"{[(x.action, x.pool) for x in decisions]}; failover: reroute "
+              f"{reroute[0]['ts'] - t_kill if reroute else None!r} s after the kill, results "
+              f"done {[t_done[f] - t_kill for f in fids if f in t_done]!r} s after it, pool "
+              f"{victim} back {recovered[0]['ts'] - t_kill if recovered else None!r} s after it; "
+              f"respawns {respawns}; moved requests {moved}; digests equal the direct "
+              f"ServingLoop run's: {agree} {card}")
+        if [x.action for x in decisions] != ["respawn"] or not reroute or not recovered \
+                or not all(agree) or respawns != 1 or not moved:
+            fail(f"14b: decisions {decisions}, reroute {reroute}, recovered {recovered}, "
+                 f"digests {agree}, respawns {respawns}; logs "
+                 f"{[p.read_text()[-1500:] for p in sorted(work.glob('pool-*/*.log'))]}")
+    finally:
+        if fc is not None:
+            fc.shutdown()
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        tele.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    alive = [p.pid for p in children if p.poll() is None]
+    print(f"phase 14: {len(children)} child processes started, {len(alive)} alive after the "
+          f"phase")
+    if alive:
+        fail(f"14: children outlived the phase: {alive}")
 
 if __name__ == "__main__":
     main()

@@ -21,14 +21,18 @@ the models' ``run()`` takes the JAX package's resilience knobs.
 
 Serving (`serving`, imported on first use): a slot pool of ensemble
 members over one batched step, admission, autoscaling and an HTTP front
-door.
+door.  Above it, imported on first use too: `supervisor` (launch, watch,
+classify, fence and relaunch a multi-process run) and `fleet` (many pools
+behind one router, with respawn, quarantine, spill and canary rollout).
 
 Observability: `telemetry` (metrics registry, event log, the models' step
 telemetry; `telemetry_snapshot`, `dump_metrics`), `tracing` (host spans
 `trace_span`, per-rank dumps `dump_trace` mergeable into one Chrome trace,
-request traces, the skew probe and the flight recorder) and `liveplane`
-(imported on first use: per-rank ``/metrics``/``/healthz``/``/spans``
-endpoints and the anomaly rule engine).
+request traces, the skew probe and the flight recorder), `profiling` (the
+device timeline over `torch.profiler`: ``IGG_PROFILE`` windows,
+`profile_trace`, per-scope attribution) and `liveplane` (imported on first
+use: per-rank ``/metrics``/``/healthz``/``/spans`` endpoints and the
+anomaly rule engine).
 """
 
 from .ops.gather import gather
@@ -44,6 +48,7 @@ from .parallel.grid import (
     global_grid,
     grid_is_initialized,
     init_global_grid,
+    profile_trace,
     select_device,
     set_global_grid,
     tic,
@@ -66,7 +71,7 @@ from .utils.fields import (
     ones,
     zeros,
 )
-from .utils import telemetry, tracing
+from .utils import profiling, telemetry, tracing
 from .utils.resilience import FieldReport, GuardError, RunGuard, check_fields, watchdog
 from .utils.telemetry import dump_metrics, telemetry_snapshot
 from .utils.tools import nx_g, ny_g, nz_g, x_g, y_g, z_g
@@ -89,6 +94,7 @@ __all__ = [
     "dump_metrics",
     "dump_trace",
     "finalize_global_grid",
+    "fleet",
     "from_block_fn",
     "full",
     "gather",
@@ -106,6 +112,8 @@ __all__ = [
     "nz_g",
     "ol",
     "ones",
+    "profile_trace",
+    "profiling",
     "prune_checkpoints",
     "restore_checkpoint",
     "save_checkpoint",
@@ -113,6 +121,7 @@ __all__ = [
     "serving",
     "set_global_grid",
     "stencil",
+    "supervisor",
     "telemetry",
     "telemetry_snapshot",
     "tic",
@@ -130,10 +139,11 @@ __all__ = [
 
 
 def __getattr__(name):
-    # Lazy: the serving subsystem pulls the models in, and the live plane
-    # its HTTP server; importing the package itself stays light (the JAX
-    # package's ``__getattr__``).
-    if name == "serving":
+    # Lazy: the serving subsystem pulls the models in, the live plane its
+    # HTTP server, and the supervisor and the fleet are host orchestration;
+    # importing the package itself stays light (the JAX package's
+    # ``__getattr__``).
+    if name in ("serving", "supervisor", "fleet"):
         import importlib
 
         return importlib.import_module(f".{name}", __name__)

@@ -92,6 +92,21 @@ Tasks:
   ``IGG_HEARTBEAT_EVERY=heartbeat`` (the probe rides its heartbeats) and
   `dump_trace` of its spans; the parent merges ``tele/trace.p*.json``.
 
+Two tasks are the children of the supervisor and the fleet (their
+``command_for`` runs ``python -m implicitglobalgrid_tpu_torch._workers
+TASK.json``; they need no ``inputs.npz``, and ``RANK`` defaults to 0):
+
+* ``"run"``: ``<model>.run(*args, device=..., dtype=..., **kw)`` of the
+  ``model`` (``diffusion3d``, ``acoustic3d``, ``porous_convection3d``)
+  under the environment the parent gave (checkpoints, faults, the
+  generation fence), its final first field saved as ``out``.  An injected
+  ``worker_crash`` ends the process there.
+* ``"pool"``: a diffusion `ServingLoop` (``capacity``, ``steps_per_round``,
+  ``step_kwargs``) on a grid of ``nxyz`` and ``grid`` on ``device`` behind
+  a `FrontDoor` on 127.0.0.1, port 0 (its endpoint file lands under
+  ``IGG_TELEMETRY_DIR``), serving until a ``POST /v1/shutdown``; saves the
+  outcome.
+
 Run one rank by hand with ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json`` and the environment variables above set.
 """
@@ -176,6 +191,44 @@ def spawn(task: dict, nprocs: int, workdir, *, timeout: float = 120.0) -> list[d
         )
         raise RuntimeError(f"workers failed ({failed}):\n{logs}")
     return [dict(np.load(workdir / f"out_rank{r}.npz")) for r in range(nprocs)]
+
+
+def _run_child(task: dict) -> dict:
+    """The ``"run"`` and ``"pool"`` tasks (see the module docstring)."""
+    import importlib
+
+    import torch
+
+    from . import finalize_global_grid, init_global_grid
+    from .models import diffusion3d
+    from .serving import FrontDoor, ServingLoop
+
+    dtype = {"float32": torch.float32, "float64": torch.float64}[task["dtype"]]
+    if task["device"] == "cpu":
+        # One intra-op thread: in about one fresh CPU process in 200, the
+        # process's first threaded float64 `torch.exp` (2048-element chunks
+        # across threads) comes out wrong past its first chunk (ROADMAP
+        # Queue C), and a supervised child is held bit for bit.
+        torch.set_num_threads(1)
+    if task["kind"] == "run":
+        model = importlib.import_module(f".models.{task['model']}", __package__)
+        out = model.run(*task["args"], device=task["device"], dtype=dtype, quiet=True,
+                        **task.get("kw", {}))
+        return {"out": out.cpu().numpy()}
+    init_global_grid(*task["nxyz"], device=task["device"], quiet=True, **task.get("grid", {}))
+    try:
+        _, params = diffusion3d.setup(*task["nxyz"], init_grid=False, dtype=dtype)
+        loop = ServingLoop(diffusion3d, params, capacity=task["capacity"],
+                           steps_per_round=task["steps_per_round"],
+                           step_kwargs=task.get("step_kwargs", {}))
+        fd = FrontDoor(loop, port=0, host="127.0.0.1", setup_kwargs={"dtype": dtype})
+        try:
+            outcome = fd.serve_rounds()
+        finally:
+            fd.close()
+        return {"outcome": np.frombuffer(outcome.encode(), np.uint8)}
+    finally:
+        finalize_global_grid()
 
 
 def _run(task: dict) -> dict:
@@ -573,10 +626,10 @@ def _run_tracing(task: dict) -> dict:
 
 def main(argv: list[str]) -> int:
     task = json.loads(Path(argv[0]).read_text())
-    out = _run(task)
+    out = _run_child(task) if task["kind"] in ("run", "pool") else _run(task)
     if "jax" in sys.modules:
         raise RuntimeError("a port worker imported jax")
-    rank = int(os.environ["RANK"])
+    rank = int(os.environ.get("RANK", "0"))
     np.savez(Path(task["workdir"]) / f"out_rank{rank}.npz", **out)
     return 0
 

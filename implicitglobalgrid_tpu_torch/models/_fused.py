@@ -57,6 +57,7 @@ from ..ops.halo import (
 )
 from ..ops.overlap import fused_with_plain_grad, tile_split_error, tile_split_sel
 from ..parallel.grid import global_grid
+from ..utils import profiling as _profiling
 from . import _batched
 
 _warned: set = set()
@@ -112,7 +113,9 @@ def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: in
     together equal one ``"all"`` launch tile for tile, and the early
     exchange moves exactly the slabs the serialized exchange would (corner
     strips patched in), so every group is bit-identical to the serialized
-    schedule.  On CPU tensors the steps run in order.  ``lead``: the
+    schedule.  On CPU tensors the steps run in order.  The passes open the
+    profiler ranges ``igg_ring_pass`` and ``igg_interior_pass`` while a
+    capture is live (`utils.profiling.scope`).  ``lead``: the
     fields' leading ensemble axes (1 for a batch); ``coalesce`` as in
     `ops.halo.update_halo`; ``wrap(group) -> group``: what each group runs
     through (the autodiff wrapper of `fused_groups`).
@@ -126,18 +129,20 @@ def run_pipelined_group_schedule(chunks, boundary, interior, carry, *, width: in
             # outputs right after this, with nothing enqueued in between, so
             # the mid pass may write into them too.
             mid.wait_stream(main)
-        b_out = boundary(ki, c)
+        with _profiling.scope("igg_ring_pass"):
+            b_out = boundary(ki, c)
         if split:
             for t in (*c, *b_out):
                 t.record_stream(mid)
-            with torch.cuda.stream(mid):
+            with torch.cuda.stream(mid), _profiling.scope("igg_interior_pass"):
                 out = interior(ki, c, b_out)
             # The compute stream holds only the ring pass since the fork.
             pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead, coalesce=coalesce)
             main.wait_stream(mid)
         else:
             pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead, coalesce=coalesce)
-            out = interior(ki, c, b_out)
+            with _profiling.scope("igg_interior_pass"):
+                out = interior(ki, c, b_out)
         out = finish_slab_exchange(out, pend)
         if z_exchange:
             for A in out:
@@ -265,14 +270,15 @@ def resolve_pipelined(pipelined, split_err, shape, k, model: str, *, remote: boo
 
 
 def split_selector(kernel_mod, shape, k, width, dtype, bx, by, active01, stagger: int = 0,
-                   gg=None, device="cpu"):
+                   gg=None, device=None):
     """(selector suffix, admissibility error, resolved tile) for a cadence.
 
     The one gate behind every model's pipelined path.  A config the
     kernel's envelope rejects is not admissible (no tile; the kernel call
     raises on it).  A missing tile
     resolves through the kernel's ladder: ``(by, bz)`` from ``tile_for``
-    and ``bx`` from the kernel's default launch on ``device``, cut to
+    and ``bx`` from the kernel's default launch on ``device`` (None: the
+    grid's device), cut to
     `PIPELINED_X_SEGMENTS` segments where x exchanges; a given ``(bx,
     by)`` takes its ``bz`` from the ladder.  The window halo ``H`` is ``k``
     (the port's kernels widen every window by ``k``; JAX's TPU sublane
@@ -284,6 +290,8 @@ def split_selector(kernel_mod, shape, k, width, dtype, bx, by, active01, stagger
     """
     if gg is None:
         gg = global_grid()
+    if device is None:
+        device = gg.device
     shape = tuple(shape)
     sel = tile_split_sel(active01)
     if (bx is None) != (by is None):
@@ -303,14 +311,15 @@ def split_selector(kernel_mod, shape, k, width, dtype, bx, by, active01, stagger
 
 
 def pipelined_support_error(kernel_mod, shape, k, dtype=torch.float32, bx=None, by=None,
-                            gg=None, stagger: int = 0, device="cpu") -> str | None:
+                            gg=None, stagger: int = 0, device=None) -> str | None:
     """Why the pipelined group schedule cannot split this config, or None.
 
     What ``pipelined=True`` needs in every model: the kernel must take the
     config (its envelope), then the split must clear `split_selector`.
     Auto also needs a partner other than the block itself in some x/y
     dimension (`resolve_pipelined`).  No z clause: see the module
-    docstring.
+    docstring.  The tiles are planned for ``device``, by default the
+    grid's.
     """
     if gg is None:
         gg = global_grid()

@@ -192,7 +192,7 @@ def _leapfrog_step(params: Params, batch: bool, coalesce=None):
 
 
 def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
-                            device="cpu") -> str | None:
+                            device=None) -> str | None:
     """Why the pipelined group schedule cannot split this config, or None
     (`models._fused.pipelined_support_error` over the leapfrog kernel;
     ``stagger=1``: the face fields' shape-aware overlap is one deeper than

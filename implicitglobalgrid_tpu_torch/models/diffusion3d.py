@@ -180,7 +180,7 @@ def make_step(params: Params, *, batch: bool = False):
 
 
 def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
-                            device="cpu") -> str | None:
+                            device=None) -> str | None:
     """Why the pipelined group schedule cannot split this config, or None
     (`models._fused.pipelined_support_error` over the diffusion kernel)."""
     return _fused.pipelined_support_error(fused_stencil, shape, k, dtype, bx, by, gg,

@@ -282,7 +282,7 @@ def make_step(params: Params, *, batch: bool = False):
 
 
 def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
-                            npt=None, device="cpu") -> str | None:
+                            npt=None, device=None) -> str | None:
     """Why the pipelined group schedule cannot split this config, or None
     (`models._fused.pipelined_support_error` over the PT kernel;
     ``stagger=1``: the flux fields' shape-aware overlap is one deeper than

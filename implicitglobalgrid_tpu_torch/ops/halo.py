@@ -71,6 +71,7 @@ import torch.distributed as dist
 from ..integrity import transport as _itransport
 from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS, PROC_NULL
+from ..utils import profiling as _profiling
 from ..utils import telemetry as _telemetry
 from ..utils import tracing as _tracing
 from ..utils.config import coalesce_env, integrity_enabled_env
@@ -566,10 +567,12 @@ def exchange(fields, *, width: int = 1, lead: int = 0, coalesce=None) -> tuple:
     ``IGG_INTEGRITY=1`` the exchange runs checksummed under a
     `TransportCollector` and its flags are read once at the end
     (`_check_transport_flags`).  The exchange is one ``igg_halo_exchange``
-    host span (the JAX package's name)."""
+    host span (the JAX package's name), and a profiler range of that name
+    while a capture is live (`utils.profiling.scope`)."""
     if _tracing._collective_delay:
         _tracing._consume_collective_delay()
-    with _tracing.trace_span("igg_halo_exchange", fields=len(fields), width=width):
+    with _tracing.trace_span("igg_halo_exchange", fields=len(fields), width=width), \
+            _profiling.scope("igg_halo_exchange"):
         if integrity_enabled_env() is not True:
             return _exchange(fields, width, lead, coalesce)
         col = _itransport.TransportCollector(flip_proc=_take_transport_flip())
@@ -659,7 +662,8 @@ def begin_slab_exchange(fields, dims, *, width: int, lead: int = 0, coalesce=Non
     ``coalesce`` as in `update_halo`.  No autograd: the schedules that call
     it carry their own (`ops.overlap.fused_with_plain_grad`).
     """
-    with _tracing.trace_span("igg_slab_exchange_begin", fields=len(fields)):
+    with _tracing.trace_span("igg_slab_exchange_begin", fields=len(fields)), \
+            _profiling.scope("igg_slab_exchange_begin"):
         return _begin_slab_exchange(fields, dims, width, lead, coalesce)
 
 
@@ -702,7 +706,8 @@ def finish_slab_exchange(fields, pends):
     they hold the same owned values.  On CUDA the current stream first waits
     for the communication stream.  Returns the fields.
     """
-    with _tracing.trace_span("igg_slab_exchange_finish", fields=len(fields)):
+    with _tracing.trace_span("igg_slab_exchange_finish", fields=len(fields)), \
+            _profiling.scope("igg_slab_exchange_finish"):
         if fields and fields[0].is_cuda:
             main = torch.cuda.current_stream(fields[0].device)
             main.wait_stream(_comm_stream(fields[0].device))

@@ -13,6 +13,7 @@ reference's error contract, so user code keeps the three-function promise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -346,3 +347,20 @@ def init_timing_functions() -> None:
     tic()
     toc()
     _t0[0] = None
+
+
+@contextlib.contextmanager
+def profile_trace(logdir, **kwargs):
+    """Record a `torch.profiler` capture of the enclosed block into
+    ``logdir``: an alias of `utils.profiling.profile_trace`, the one manual
+    capture (the JAX package's ``profile_trace`` over `jax.profiler`)::
+
+        with igg.profile_trace("/tmp/igg-trace"):
+            for _ in range(100):
+                state = step(*state)
+        # python -m implicitglobalgrid_tpu_torch.utils.profiling attribute /tmp/igg-trace
+    """
+    from ..utils import profiling as _profiling
+
+    with _profiling.profile_trace(logdir, **kwargs):
+        yield

@@ -14,15 +14,16 @@ The verdict is rank-uniform (a per-incarnation token against a shared
 file), so it can never split a collective save.  Unfenced runs
 (``IGG_GENERATION`` unset, the default) skip every check.
 
-The port's copy of the fence half of the JAX package's
-``supervisor/generation.py``; publishing tokens belongs to the supervisor
-(ROADMAP Queue A item 14e).
+The port's copy of the JAX package's ``supervisor/generation.py``: the
+fence checks, and `publish_generation`, which `supervisor.manager` and
+`fleet.controller` call.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 
 from ..utils import config as _config
 from ..utils import telemetry as _telemetry
@@ -32,7 +33,10 @@ __all__ = [
     "GENERATION_FILE",
     "current_generation",
     "authoritative_generation",
+    "fence_dir",
+    "publish_generation",
     "fence_refusal",
+    "fence_refused",
     "check_fence",
 ]
 
@@ -54,12 +58,17 @@ def current_generation() -> int | None:
     return _config.generation_env()
 
 
+def fence_dir() -> str | None:
+    """Where the authoritative token lives (``IGG_FENCE_DIR``)."""
+    return _config.fence_dir_env()
+
+
 def authoritative_generation(directory: str | None = None) -> int | None:
     """The supervisor-published current token, or None when no fence file
     is readable.  A present but unparseable file also reads as None (a torn
     file must not wedge the run) and is recorded as a ``fence.corrupt``
     event."""
-    directory = directory if directory is not None else _config.fence_dir_env()
+    directory = directory if directory is not None else fence_dir()
     if not directory:
         return None
     path = os.path.join(directory, GENERATION_FILE)
@@ -72,6 +81,30 @@ def authoritative_generation(directory: str | None = None) -> int | None:
         _telemetry.counter("fence.corrupt_total").inc()
         _telemetry.event("fence.corrupt", path=path)
         return None
+
+
+def publish_generation(generation: int, directory: str | None = None, **info) -> str:
+    """Supervisor side: atomically publish ``generation`` as the
+    authoritative token.  Refuses to move the token backwards: the
+    monotonicity that makes the stale-token refusal sound."""
+    directory = directory if directory is not None else fence_dir()
+    if not directory:
+        raise ValueError(
+            "publish_generation needs a fence directory (argument or "
+            "IGG_FENCE_DIR)."
+        )
+    generation = int(generation)
+    prev = authoritative_generation(directory)
+    if prev is not None and generation < prev:
+        raise ValueError(
+            f"generation must be monotonic: refusing to publish "
+            f"{generation} over the authoritative {prev}."
+        )
+    os.makedirs(directory, exist_ok=True)
+    return _telemetry.atomic_write_json(
+        os.path.join(directory, GENERATION_FILE),
+        {"generation": generation, "ts": time.time(), **info},
+    )
 
 
 def fence_refusal(what: str) -> FenceError | None:
@@ -93,6 +126,12 @@ def fence_refusal(what: str) -> FenceError | None:
         generation=gen,
         authoritative=auth,
     )
+
+
+def fence_refused(what: str) -> bool:
+    """Non-raising fence check for advisory writes (endpoint files, the
+    canary verdict): True = refuse (the refusal is already recorded)."""
+    return fence_refusal(what) is not None
 
 
 def check_fence(what: str) -> None:

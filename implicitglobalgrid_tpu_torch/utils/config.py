@@ -42,9 +42,22 @@ and the halo exchange's:
 ``IGG_AUTOSCALE_SUSTAIN`` consecutive verdicts before a resize commits
 ``IGG_RESULT_KEEP``       consumed serving results kept (0 = all)
 ``IGG_RESULT_TTL_S``      age bound on consumed serving results (> 0)
+``IGG_PROFILE``           device-timeline capture window ``steps:A-B``
+``IGG_PROFILE_DIR``       base directory of the per-rank capture dirs
+``IGG_SUPERVISE_MAX_RESTARTS``  in-place restarts before a rung is dropped
+``IGG_SUPERVISE_BACKOFF_S``  base of the supervisor's relaunch backoff (> 0)
+``IGG_SUPERVISE_POLL_S``  supervisor polling cadence in seconds (> 0)
+``IGG_FLEET_PORT``        fleet router port (0 = ephemeral)
+``IGG_FLEET_POLL_S``      fleet controller polling cadence in seconds (> 0)
+``IGG_FLEET_RESPAWN_LIMIT``  pool respawns before its devices are quarantined
+``IGG_FLEET_SCRAPE_RETRIES``  per-endpoint health-scrape retry budget
+``IGG_FLEET_SPILL_QUEUE`` hot-pool queue depth that spawns a spill pool
+``IGG_FLEET_IDLE_RETIRE`` idle observations before a spilled pool retires
+``IGG_FLEET_CANARY_STREAK``  healthy canary observations before promotion
+``IGG_FLEET_CANARY_P99_S``  canary round-p99 breach threshold in seconds
 ========================  ====================================================
 
-The resilience and serving knobs are read per call, not snapshotted at init; their
+The resilience, serving, profiling, supervisor and fleet knobs are read per call, not snapshotted at init; their
 names, validation and messages are the JAX package's
 (``utils/config.py``).
 """
@@ -400,3 +413,91 @@ def result_ttl_env() -> float | None:
     """``IGG_RESULT_TTL_S``: age bound in seconds on consumed results
     (> 0; unset = no TTL)."""
     return _float_env("IGG_RESULT_TTL_S", exclusive_minimum=0)
+
+
+# -- Device-timeline profiling knobs ------------------------------------------
+
+
+def profile_env() -> str | None:
+    """``IGG_PROFILE``: device-timeline capture window spec (``steps:A-B``
+    or ``steps:N``); unset/empty = no capture.  Parsed and validated by
+    `utils.profiling.parse_profile_window`."""
+    return _str_env("IGG_PROFILE")
+
+
+def profile_dir_env() -> str | None:
+    """``IGG_PROFILE_DIR``: base directory for per-rank profiler capture
+    dirs (unset = derive from ``IGG_TELEMETRY_DIR``)."""
+    return _str_env("IGG_PROFILE_DIR")
+
+
+# -- Fleet knobs (read per construction, host-side) ---------------------------
+
+
+def fleet_port_env() -> int | None:
+    """``IGG_FLEET_PORT``: fleet router public port (>= 0; 0 = ephemeral).
+    ``None`` = unset — `fleet.router.FleetRouter` falls back to 0."""
+    return _int_env("IGG_FLEET_PORT", minimum=0)
+
+
+def fleet_poll_env() -> float | None:
+    """``IGG_FLEET_POLL_S``: fleet controller polling cadence in seconds
+    (> 0, default 0.5)."""
+    return _float_env("IGG_FLEET_POLL_S", exclusive_minimum=0)
+
+
+def fleet_respawn_limit_env() -> int | None:
+    """``IGG_FLEET_RESPAWN_LIMIT``: pool respawns per failure streak before
+    the policy quarantines the pool's device subset (>= 0, default 2)."""
+    return _int_env("IGG_FLEET_RESPAWN_LIMIT", minimum=0)
+
+
+def fleet_scrape_retries_env() -> int | None:
+    """``IGG_FLEET_SCRAPE_RETRIES``: per-endpoint health-scrape retry budget
+    (>= 0, default 2) before the endpoint is marked ``UNREACHABLE``."""
+    return _int_env("IGG_FLEET_SCRAPE_RETRIES", minimum=0)
+
+
+def fleet_spill_queue_env() -> int | None:
+    """``IGG_FLEET_SPILL_QUEUE``: hot-pool queue depth that makes the policy
+    spawn a spill pool (>= 1; unset = spill off)."""
+    return _int_env("IGG_FLEET_SPILL_QUEUE", minimum=1)
+
+
+def fleet_idle_retire_env() -> int | None:
+    """``IGG_FLEET_IDLE_RETIRE``: consecutive idle observations before a
+    spilled pool retires (>= 1; unset = pools never retire)."""
+    return _int_env("IGG_FLEET_IDLE_RETIRE", minimum=1)
+
+
+def fleet_canary_streak_env() -> int | None:
+    """``IGG_FLEET_CANARY_STREAK``: consecutive healthy canary observations
+    before auto-promote (>= 1, default 3)."""
+    return _int_env("IGG_FLEET_CANARY_STREAK", minimum=1)
+
+
+def fleet_canary_p99_env() -> float | None:
+    """``IGG_FLEET_CANARY_P99_S``: canary round-p99 breach threshold in
+    seconds (> 0; unset = alerts-only breach detection)."""
+    return _float_env("IGG_FLEET_CANARY_P99_S", exclusive_minimum=0)
+
+
+# -- Supervisor knobs -----------------------------------------------------------
+
+
+def supervise_max_restarts_env() -> int | None:
+    """``IGG_SUPERVISE_MAX_RESTARTS``: in-place restarts per failure streak
+    before the supervisor shrinks a rung (>= 0, default 2)."""
+    return _int_env("IGG_SUPERVISE_MAX_RESTARTS", minimum=0)
+
+
+def supervise_backoff_env() -> float | None:
+    """``IGG_SUPERVISE_BACKOFF_S``: base relaunch backoff in seconds
+    (> 0, default 0.5)."""
+    return _float_env("IGG_SUPERVISE_BACKOFF_S", exclusive_minimum=0)
+
+
+def supervise_poll_env() -> float | None:
+    """``IGG_SUPERVISE_POLL_S``: supervisor liveness/health polling cadence
+    in seconds (> 0, default 0.5)."""
+    return _float_env("IGG_SUPERVISE_POLL_S", exclusive_minimum=0)

@@ -54,6 +54,7 @@ from ..parallel import distributed as _dist
 from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS
 from . import config as _config
+from . import profiling as _profiling
 from . import telemetry as _telemetry
 from . import tracing as _tracing
 
@@ -1222,7 +1223,7 @@ def guarded_time_loop(step_fn, state: tuple, nt: int, *, guard: "RunGuard",
     enabled = guard.enabled
     tele = (
         _telemetry.step_loop(model, bytes_per_step=bytes_per_step, start_step=it,
-                             total_steps=nt)
+                             total_steps=nt, steps_per_call=k)
         if model is not None
         else None
     )
@@ -1248,14 +1249,18 @@ def guarded_time_loop(step_fn, state: tuple, nt: int, *, guard: "RunGuard",
         while it < nt:
             # One ``igg.step`` host span per call (dispatch + guard
             # pipeline: the wall time step_seconds records), tagged with
-            # the step it ends on.  Untraced loops reuse the shared null
-            # context.  The JAX package also opens a profiler annotation
-            # here (`trace_annotation`): ROADMAP Queue A item 14d.
-            span = (_NULL_CM if tele is None
-                    else _tracing.trace_span("igg.step", model=model, step=it + k))
+            # the step it ends on, and the profiler range ``igg_step[<model>]``
+            # around the call while a capture is live.  Untraced loops reuse
+            # the shared null context.
+            if tele is None:
+                span = ann = _NULL_CM
+            else:
+                span = _tracing.trace_span("igg.step", model=model, step=it + k)
+                ann = _profiling.scope(f"igg_step[{model}]")
             with span:
                 pre = guard.audit_snapshot(state, it, k) if enabled else None
-                state = step_fn(*state)
+                with ann:
+                    state = step_fn(*state)
                 it += k
                 if enabled:
                     state, it = guard.on_step(state, it, replay=(step_fn, pre))
@@ -1266,6 +1271,11 @@ def guarded_time_loop(step_fn, state: tuple, nt: int, *, guard: "RunGuard",
     finally:
         if _liveplane is not None:
             _liveplane.unsubscribe(guard.on_alert)
+        if tele is not None:
+            # A capture window still open when the loop exits (a guard
+            # trip, an injected fault) stops here, so the bytes already
+            # captured land next to the flight bundle.  Never raises.
+            _profiling.close_open_capture("scope_exit")
     return state
 
 

@@ -555,7 +555,7 @@ class _StepLoop:
     """Per-step recorder handed to the models' time loops (see `step_loop`)."""
 
     def __init__(self, model: str, bytes_per_step: int | None, start_step: int,
-                 total_steps: int, heartbeat_every: int):
+                 total_steps: int, heartbeat_every: int, steps_per_call: int = 1):
         self.model = model
         self.bytes_per_step = bytes_per_step
         self.total_steps = total_steps
@@ -573,13 +573,16 @@ class _StepLoop:
         self._win_n = 0
         # The live plane: the per-rank scrape server (no-op unless
         # IGG_METRICS_PORT is set), and the pre-first-step mark that keeps
-        # the step-stall rule quiet through bring-up.  The JAX package
-        # also arms its device-timeline capture (`utils.profiling`) here:
-        # ROADMAP Queue A item 14d.
+        # the step-stall rule quiet through bring-up.
         note_progress(model, start_step, init=True)
         from . import liveplane as _liveplane
 
         _liveplane.ensure_server()
+        # The device-timeline capture (`utils.profiling`): None unless
+        # IGG_PROFILE names a step window.
+        from . import profiling as _profiling
+
+        self._profile = _profiling.maybe_arm(start_step, steps_per_call)
         event("run.start", model=model, start_step=start_step,
               total_steps=total_steps, bytes_per_step=bytes_per_step)
 
@@ -607,6 +610,8 @@ class _StepLoop:
                 self._teff.record(gbs)
             self._teff_g.set(gbs)
         note_progress(self.model, it)
+        if self._profile is not None:
+            self._profile.on_step(it, steps)
         hb = self.heartbeat_every
         if hb and it // hb > (it - steps) // hb:
             # The skew probe is a collective: every rank runs it at the
@@ -639,6 +644,9 @@ class _StepLoop:
                       t_eff_gbs=gbs, **_heartbeat_context(skew))
 
     def finish(self, it: int) -> None:
+        if self._profile is not None:
+            # a window still open past the last step stops here
+            self._profile.close("run_complete")
         note_progress(self.model, it, done=True)
         event("run.complete", model=self.model, step=it)
 
@@ -667,7 +675,7 @@ def _heartbeat_context(skew: dict | None) -> dict:
 
 
 def step_loop(model: str, *, bytes_per_step: int | None = None, start_step: int = 0,
-              total_steps: int = 0) -> _StepLoop | None:
+              total_steps: int = 0, steps_per_call: int = 1) -> _StepLoop | None:
     """A per-step recorder for a host-side time loop, or ``None`` when
     telemetry is off.
 
@@ -678,11 +686,13 @@ def step_loop(model: str, *, bytes_per_step: int | None = None, start_step: int 
     wall time per step is host time: on the card the loop never waits for
     the device, so it is the dispatch time until the CUDA queue fills and
     the device's pace after that (amortized, as in the JAX package).
+    ``steps_per_call``: the steps one loop call advances, which an
+    ``IGG_PROFILE`` window is matched against.
     """
     if not enabled():
         return None
     hb = _config.heartbeat_every_env() or 0
-    return _StepLoop(model, bytes_per_step, start_step, total_steps, hb)
+    return _StepLoop(model, bytes_per_step, start_step, total_steps, hb, steps_per_call)
 
 
 def reset() -> None:

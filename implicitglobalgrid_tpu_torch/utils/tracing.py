@@ -1581,8 +1581,16 @@ def dump_flight_recorder(reason: str, **info: Any) -> str | None:
             # is the one that was in flight when the run died.
             "spans": span_records() + open_spans(),
         }
-        # The JAX package also records an in-flight device capture here
-        # (`utils.profiling`): ROADMAP Queue A item 14d.
+        try:
+            # An in-flight device capture (`utils.profiling`): a crash
+            # mid-window is explained by its dir, window and step.
+            from . import profiling as _profiling
+
+            cap = _profiling.active_capture()
+            if cap is not None:
+                bundle["profile"] = cap
+        except Exception:
+            pass
         try:
             line = json.dumps(bundle, default=str) + "\n"
         except (TypeError, ValueError):

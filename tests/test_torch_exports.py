@@ -17,10 +17,6 @@ import implicitglobalgrid_tpu_torch as tigg
 #: Names of the JAX package's ``__all__`` that the port does not export yet,
 #: with the ROADMAP Queue A item (or leftover) that brings each.
 NOT_YET_PORTED = {
-    "profile_trace": "14d",
-    "profiling": "14d",
-    "supervisor": "14e",
-    "fleet": "14e",
     "analysis": "15",
 }
 #: JAX-only by design: the names of the device mesh's axes.

@@ -320,6 +320,34 @@ def test_chip_configs_admit_the_split(config):
     tigg.finalize_global_grid()
 
 
+@pytest.mark.parametrize("config", list(MAIN_CONFIGS))
+def test_support_error_plans_tiles_for_the_grids_device(config, monkeypatch):
+    """Without ``device=``, `pipelined_support_error` plans its tiles for
+    the grid's device: a grid on ``cuda:0`` reaches the kernel's
+    `default_tile` with ``cuda:0``, not the CPU ladder's device.  The spy
+    answers with the CPU ladder, so no card is needed."""
+    import dataclasses
+
+    tm, kmod, stagger, k, o, _ = MAIN_CONFIGS[config]
+    tigg.init_global_grid(256, 256, 256, quiet=True, device="cpu", periodx=1, periody=1,
+                          periodz=1, overlapx=o, overlapy=o, overlapz=o)
+    seen = []
+
+    def spy(shape, k, itemsize, device):
+        seen.append(torch.device(device))
+        return kmod.tile_for(shape, k, itemsize)
+
+    monkeypatch.setattr(kmod, "default_tile", spy)
+    assert tm.pipelined_support_error((256,) * 3, k, torch.float32) is None
+    assert seen == [torch.device("cpu")]
+    tigg.set_global_grid(dataclasses.replace(tigg.global_grid(), device=torch.device("cuda", 0)))
+    assert tm.pipelined_support_error((256,) * 3, k, torch.float32) is None
+    assert seen[1:] == [torch.device("cuda", 0)]
+    assert tm.pipelined_support_error((256,) * 3, k, torch.float32, device="cpu") is None
+    assert seen[2:] == [torch.device("cpu")]
+    tigg.set_global_grid(dataclasses.replace(tigg.global_grid(), device=torch.device("cpu")))
+
+
 @pytest.mark.parametrize("dims,sel", [((2, 1, 1), "01"), ((1, 2, 1), "01"), ((1, 1, 2), None)],
                          ids=["x", "y", "z"])
 def test_auto_splits_where_an_xy_partner_is_another_block(dims, sel):
