@@ -225,6 +225,27 @@ and then prints no result line):
    respawn, and every result's digest equals a direct ``ServingLoop`` run's;
    the failover seconds are printed.  Every child is stopped, and checked
    reaped, before the phase ends; its directories are removed.
+15. The autotuner (``tuning``) over the three kernels, at the main paths'
+   points (``MAIN_RUNS``: phases 3, 5 and 6's configs).  (a) With
+   ``IGG_TUNE_CACHE`` a fresh directory, the committed seed layer pointed
+   at an empty one, ``IGG_TUNE_TOPK=4`` and ``IGG_TUNE_STEPS=3``:
+   ``make_multi_step(autotune=True)`` searches; printed per candidate: the
+   config, the modeled bytes per step and shared memory per block, the
+   rejection or pruning reason or the measured ms per chunk call; then the
+   winner, the default's and the hand-picked main-path config's times.
+   ``tune.candidates_measured`` grows by the survivors exactly, the search
+   launched the model's kernel, and the stored entry passes
+   ``validate_entry`` and ``admissibility_error``.  (b) A second
+   ``make_multi_step(autotune=True)`` is a cache hit: ``tune.cache_hit`` + 1,
+   nothing measured, built or launched.  (c) The tuned run's state matches
+   the default config's within phases 3/5/6's tolerances; survivors that
+   share a ``fused_k`` match bit for bit; every survivor's explicit tile (or
+   the first ``tile_ladder`` tile where none survived) matches the default
+   tile bit for bit; one kernel launch at the winner's and at those tiles
+   is timed in turns against the default tile.  (d) ``python -m implicitglobalgrid_tpu_torch.analysis``
+   exits 0.  The phase restores its variables, removes its directory and
+   prints its wall time.  ``--tune-out DIR`` also writes the winners'
+   entries to DIR.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -367,6 +388,12 @@ def nbytes(*tensors) -> int:
 
 
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
+    parser.add_argument("--tune-out", default=None, metavar="DIR",
+                        help="also write phase 15a's winners' cache entries to DIR")
+    tune_out = parser.parse_args().tune_out
     t_start = time.perf_counter()
     if not (ROOT / "implicitglobalgrid_tpu_torch" / "__init__.py").is_file():
         fail(f"{ROOT} holds no implicitglobalgrid_tpu_torch package: run from a checkout")
@@ -764,8 +791,10 @@ def main() -> None:
     phase13(torch, igg, reset_counts, counts, card, main_split, main_step_ms)
     PHASE[0] = "14"
     phase14(torch, igg, reset_counts, counts, card)
+    PHASE[0] = "15"
+    phase15(torch, igg, reset_counts, counts, card, tune_out=tune_out)
 
-    print(f"chip_smoke: phases 1-14 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(f"chip_smoke: phases 1-15 passed in {time.perf_counter() - t_start!r} s {card}")
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2432,6 +2461,226 @@ def phase14(torch, igg, reset_counts, counts, card, n=256, device="cuda") -> Non
           f"phase")
     if alive:
         fail(f"14: children outlived the phase: {alive}")
+
+
+def kernel_launch(model, params, state, k):
+    """``tile -> outputs``: one launch of ``model``'s kernel on ``state`` at
+    ``k``, with the constants phases 3, 5 and 6 fold from ``params``."""
+    from implicitglobalgrid_tpu_torch.ops import fused_leapfrog as fl
+    from implicitglobalgrid_tpu_torch.ops import fused_pt as fp
+    from implicitglobalgrid_tpu_torch.ops import fused_stencil as fs
+
+    p = params
+    inv = tuple(1.0 / d for d in (p.dx, p.dy, p.dz))
+    if model == "diffusion3d":
+        c3 = [p.dt * p.lam / (d * d) for d in (p.dx, p.dy, p.dz)]
+        return lambda tile: fs.fused_diffusion_steps(*state, k, *c3, tile=tile)
+    if model == "acoustic3d":
+        co = (*(p.dt / p.rho / d for d in (p.dx, p.dy, p.dz)), p.dt * p.K, *inv)
+        return lambda tile: fl.fused_leapfrog_steps(*state, k, *co, tile=tile)
+    co = (p.theta_q, *inv, p.Ra * p.lam_T, p.beta_p)
+    return lambda tile: fp.fused_pt_iterations(*state, k, *co, tile=tile)
+
+
+def phase15(torch, igg, reset_counts, counts, card, tune_out=None, n=256, device="cuda") -> None:
+    """Phase 15: the autotuner on the card (see the module docstring).
+    ``tune_out``: a directory to write the three winners' entries to (the
+    committed seed layer's source).  ``n`` and ``device`` exist for a
+    rehearsal of the phase at a small size on the CPU."""
+    import importlib
+
+    from implicitglobalgrid_tpu_torch import tuning
+    from implicitglobalgrid_tpu_torch.tuning import cache as tcache
+    from implicitglobalgrid_tpu_torch.tuning import search, space
+    from implicitglobalgrid_tpu_torch.utils import telemetry as tele
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="igg_phase15_"))
+    knobs = ("IGG_TUNE_CACHE", "IGG_TUNE_TOPK", "IGG_TUNE_STEPS")
+    saved_env = {k: os.environ.get(k) for k in knobs}
+    saved_seed, measure_model = tcache.SEED_DIR, search._measure_model
+    log = []  # (config, seconds) of every measurement the search makes
+
+    def recording(module, params, nsteps, batch, config, *a, **kw):
+        t = measure_model(module, params, nsteps, batch, config, *a, **kw)
+        log.append((json.dumps(config, sort_keys=True), t))
+        return t
+
+    def tuned_counters():
+        return {k: v for k, v in tele.snapshot()["counters"].items() if k.startswith("tune.")}
+
+    def close(model, got, want, tol):
+        """The tolerance phases 3, 5 and 6 hold the kernel against the plain
+        cadence to (porous: relative to each field's scale)."""
+        for g, w in zip(got, want):
+            if not torch.isfinite(g).all():
+                fail(f"15c {model}: non-finite output")
+            err = float((g - w).abs().max())
+            if model == "porous_convection3d":
+                err /= max(float(w.abs().max()), 1.0)
+            if not err <= tol:
+                fail(f"15c {model}: tuned vs default differ by {err!r} > {tol}")
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    tols = {"diffusion3d": 1e-5, "acoustic3d": 2e-5, "porous_convection3d": 2e-5}
+    try:
+        # The committed seed layer must not answer: every point is measured.
+        tcache.SEED_DIR = str(work / "no-seed")
+        search._measure_model = recording
+        os.environ.update(IGG_TUNE_TOPK="4", IGG_TUNE_STEPS="3")
+        for model, spec in MAIN_RUNS.items():
+            module = importlib.import_module(f"implicitglobalgrid_tpu_torch.models.{model}")
+            kw = dict(spec["kw"])
+            hand = {"fused_k": kw.pop("fused_k")}
+            nsteps, kernel = spec["nt"], spec["kernel"]
+            os.environ["IGG_TUNE_CACHE"] = str(work / model)
+            cache = tuning.TuneCache(primary=str(work / model), fallbacks=())
+            state, params = module.setup(n, n, n, dtype=torch.float32, quiet=True,
+                                         device=device, **kw)
+            gg = igg.get_global_grid()
+            npt = getattr(params, "npt", None) if model == "porous_convection3d" else None
+            key = tuning.make_key(model, gg.nxyz, params.dtype, gg=gg, nsteps=nsteps,
+                                  extra={"npt": npt} if npt is not None else None)
+            if cache.lookup(key) is not None or tuning.TuneCache().lookup(key) is not None:
+                fail(f"15a {model}: the fresh cache already answers {key}")
+            cands, rejected = space.candidate_space(model, gg.nxyz, params.dtype,
+                                                    nsteps=nsteps, gg=gg, npt=npt)
+            survivors, cut = space.prune(cands, 4)
+
+            # -- 15a: the search, through the model's entry point ----------
+            c0, n_log = tuned_counters(), len(log)
+            reset_counts()
+            t0 = time.perf_counter()
+            tuned = module.make_multi_step(params, nsteps, autotune=True)
+            search_s = time.perf_counter() - t0
+            out = tuned(*state)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launched = counts()
+            c1 = tuned_counters()
+            measured = dict(log[n_log:])
+            d_measured = c1.get("tune.candidates_measured", 0) - c0.get(
+                "tune.candidates_measured", 0)
+            if d_measured != len(survivors) or len(log) - n_log != len(survivors):
+                fail(f"15a {model}: measured {d_measured} (logged {len(log) - n_log}), "
+                     f"survivors {len(survivors)}")
+            if device == "cuda" and not launched[kernel]:
+                fail(f"15a {model}: the search launched {launched}, no {kernel}")
+            entry = cache.lookup(key)
+            if entry is None:
+                fail(f"15a {model}: no entry stored at {cache.path_for(key)}")
+            got_key, winner = tuning.validate_entry(entry)
+            err = tuning.admissibility_error(got_key, winner)
+            if got_key != key or err is not None:
+                fail(f"15a {model}: stored entry {entry} is not admissible: {err}")
+            ms = {cfg: t * 1e3 for cfg, t in measured.items()}
+            rows = [(c["config"], c["modeled"],
+                     f"measured {ms[json.dumps(c['config'], sort_keys=True)]!r} ms per chunk call")
+                    for c in survivors]
+            rows += [(c["config"], c["modeled"], f"pruned: {c['error']}") for c in cut]
+            rows += [(c["config"], None, f"rejected: {c['error']}") for c in rejected]
+            for cfg, m, what in rows:
+                print(f"phase 15a: {model} {json.dumps(cfg)}: "
+                      + (f"modeled {m['bytes_per_step']!r} B/step, {m['smem_bytes']} B shared "
+                         f"memory per block, " if m else "")
+                      + what)
+            t_hand = measure_model(module, params, nsteps, 0, dict(hand))
+            print(f"phase 15a: {model} {n}^3 f32 nsteps={nsteps}: winner {json.dumps(winner)} "
+                  f"{ms[json.dumps(winner, sort_keys=True)]!r} ms per chunk call; "
+                  f"default {{}} {ms['{}']!r} ms; the main path's {json.dumps(hand)} "
+                  f"{t_hand * 1e3!r} ms; search {search_s!r} s, {len(survivors)} measured of "
+                  f"{len(cands)} candidates ({len(rejected)} rejected); launches {launched} "
+                  f"{card}")
+            if tune_out:
+                Path(tune_out).mkdir(parents=True, exist_ok=True)
+                tuning.TuneCache(primary=tune_out, fallbacks=()).store(key, tuning.new_entry(
+                    key, winner, source=f"search: chip_smoke.py phase 15a on {card[1:-1]}",
+                    modeled=entry["modeled"], measured=entry["measured"],
+                    tuner=entry["tuner"]))
+
+            # -- 15b: the second resolve is a cache hit --------------------
+            c0, n_log = tuned_counters(), len(log)
+            reset_counts()
+            again = module.make_multi_step(params, nsteps, autotune=True)
+            c1 = tuned_counters()
+            hit = c1.get("tune.cache_hit", 0) - c0.get("tune.cache_hit", 0)
+            moved = c1.get("tune.candidates_measured", 0) - c0.get("tune.candidates_measured", 0)
+            if hit != 1 or moved or len(log) != n_log or any(counts().values()):
+                fail(f"15b {model}: hit {hit}, measured {moved}, builds {len(log) - n_log}, "
+                     f"launches {counts()}")
+            same = all(torch.equal(a, b) for a, b in zip(again(*state), out))
+            print(f"phase 15b: {model}: cache hit, 0 candidates measured or launched; the hit's "
+                  f"step equals the first's bit for bit: {same}")
+            if not same:
+                fail(f"15b {model}: the cache hit's step differs from the searched one")
+
+            # -- 15c: a tuned config changes the schedule, not the result --
+            err = close(model, out, module.make_multi_step(params, nsteps)(*state),
+                        tols[model])
+            by_k: dict = {}
+            for c in survivors:
+                k = c["config"].get("fused_k")
+                if k:
+                    by_k.setdefault(k, []).append(
+                        (c["config"], module.make_multi_step(params, nsteps, **c["config"])(
+                            *state)))
+            for k, runs in by_k.items():
+                for cfg, got in runs[1:]:
+                    if not all(torch.equal(a, b) for a, b in zip(got, runs[0][1])):
+                        fail(f"15c {model}: {cfg} differs from {runs[0][0]} at fused_k={k}")
+            tiled = [c["config"] for c in survivors if "fused_tile" in c["config"]]
+            if not tiled:
+                k = hand["fused_k"]
+                tile = space.tile_ladder(model, gg.nxyz, k, params.dtype, gg.device)[1][0]
+                tiled = [{"fused_k": k, "fused_tile": list(tile)}]
+            for cfg in tiled:
+                k = cfg["fused_k"]
+                got = module.make_multi_step(params, nsteps, **cfg)(*state)
+                want = module.make_multi_step(params, nsteps, fused_k=k)(*state)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    fail(f"15c {model}: tile {cfg['fused_tile']} differs from the default "
+                         f"tile at fused_k={k}")
+            kernel_tiles = [space.launch_tile(model, gg.nxyz, c["fused_k"], params.dtype,
+                                              c["fused_tile"]) for c in tiled]
+            print(f"phase 15c: {model}: tuned vs default max|diff| = {err!r} (tolerance "
+                  f"{tols[model]}); survivors per fused_k, bit for bit: "
+                  f"{ {k: len(r) for k, r in by_k.items()} }; non-default tiles (bx, by, bz) "
+                  f"{kernel_tiles} bit for bit against the default tile")
+            if device == "cuda":
+                # one launch at the main path's k: the winner's tile and every
+                # checked tile against the default one, in turns
+                k = winner.get("fused_k", hand["fused_k"])
+                auto = space.launch_tile(model, gg.nxyz, k, params.dtype, device=gg.device)
+                win = space.launch_tile(model, gg.nxyz, k, params.dtype, winner.get("fused_tile"),
+                                        gg.device)
+                tiles = list(dict.fromkeys([auto, win, *kernel_tiles]))
+                launch = kernel_launch(model, params, state, k)
+                turns = in_turns(torch, [lambda t=t: launch(t) for t in tiles], reps=10, turns=2)
+                print(f"phase 15c: {kernel} {n}^3 f32 k={k}, ms per launch (2 turns of 10): "
+                      + "; ".join(f"tile {t}{' (default)' if t == auto else ''}"
+                                  f"{' (winner)' if t == win else ''} {ms!r}"
+                                  for t, ms in zip(tiles, turns)) + f" {card}")
+            igg.finalize_global_grid()
+            del state, out, by_k
+
+        # -- 15d: the analysis suite on the machine with the card ----------
+        lint = subprocess.run([sys.executable, "-m", "implicitglobalgrid_tpu_torch.analysis"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=120)
+        print(f"phase 15d: python -m implicitglobalgrid_tpu_torch.analysis exited "
+              f"{lint.returncode}: {lint.stdout.strip().splitlines()[-1:]}")
+        if lint.returncode != 0:
+            fail(f"15d: the analysis suite failed:\n{lint.stdout}\n{lint.stderr}")
+    finally:
+        tcache.SEED_DIR, search._measure_model = saved_seed, measure_model
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if igg.grid_is_initialized():
+            igg.finalize_global_grid()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 15: {time.perf_counter() - t_phase!r} s {card}")
 
 if __name__ == "__main__":
     main()

@@ -25,6 +25,11 @@ door.  Above it, imported on first use too: `supervisor` (launch, watch,
 classify, fence and relaunch a multi-process run) and `fleet` (many pools
 behind one router, with respawn, quarantine, spill and canary rollout).
 
+Tuning and analysis: `tuning` (imported on first use: the autotuner
+behind the models' ``make_multi_step(autotune=True)``) and `analysis` (the
+static-analysis suite: rank-guarded collectives, the host-plan censuses,
+the knob table, the tuner's committed seed layer).
+
 Observability: `telemetry` (metrics registry, event log, the models' step
 telemetry; `telemetry_snapshot`, `dump_metrics`), `tracing` (host spans
 `trace_span`, per-rank dumps `dump_trace` mergeable into one Chrome trace,
@@ -76,6 +81,7 @@ from .utils.resilience import FieldReport, GuardError, RunGuard, check_fields, w
 from .utils.telemetry import dump_metrics, telemetry_snapshot
 from .utils.tools import nx_g, ny_g, nz_g, x_g, y_g, z_g
 from .utils.tracing import dump_trace, trace_span
+from . import analysis
 
 __all__ = [
     "FieldReport",
@@ -85,6 +91,7 @@ __all__ = [
     "NNEIGHBORS_PER_DIM",
     "PROC_NULL",
     "RunGuard",
+    "analysis",
     "block_from_numpy",
     "block_slice",
     "check_fields",

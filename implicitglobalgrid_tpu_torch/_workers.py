@@ -92,6 +92,16 @@ Tasks:
   ``IGG_HEARTBEAT_EVERY=heartbeat`` (the probe rides its heartbeats) and
   `dump_trace` of its spans; the parent merges ``tele/trace.p*.json``.
 
+* ``"tuning"``: the autotuner's SPMD resolve on a diffusion grid of
+  ``nxyz`` and ``grid`` under ``env``.  Rank ``r``'s primary cache is
+  ``<workdir>/cache<r>`` (``IGG_TUNE_CACHE``); rank ``local_rank`` first
+  stores ``local_config`` there under the point's key.  Every rank then
+  resolves through `tuning.search.apply_tuned_config`, saves the applied
+  config as ``config`` and its cache directory's entries as ``cache``
+  (JSON bytes), and runs ``make_multi_step(autotune=True)`` (a hit) and
+  the default config from the same state, saved as ``T`` and
+  ``T_default``.
+
 Two tasks are the children of the supervisor and the fleet (their
 ``command_for`` runs ``python -m implicitglobalgrid_tpu_torch._workers
 TASK.json``; they need no ``inputs.npz``, and ``RANK`` defaults to 0):
@@ -256,6 +266,8 @@ def _run(task: dict) -> dict:
         return _run_serving(task)
     if task["kind"] == "tracing":
         return _run_tracing(task)
+    if task["kind"] == "tuning":
+        return _run_tuning(task)
     init_global_grid(*task["nxyz"], device="cpu", quiet=True, **task.get("grid", {}))
     try:
         if task["kind"] == "halo":
@@ -622,6 +634,39 @@ def _run_tracing(task: dict) -> dict:
     diffusion3d.run(task["nt"], *task["nxyz"], dtype=torch.float64, **grid)
     tracing.dump_trace()
     return out
+
+
+def _run_tuning(task: dict) -> dict:
+    """The ``"tuning"`` task (see the module docstring)."""
+    import torch
+
+    from . import finalize_global_grid, get_global_grid, init_global_grid
+    from .models import diffusion3d
+    from .tuning import TuneCache, make_key, new_entry, search
+
+    def as_bytes(doc):
+        return np.frombuffer(json.dumps(doc, sort_keys=True).encode(), np.uint8)
+
+    rank = int(os.environ["RANK"])
+    cache_dir = Path(task["workdir"]) / f"cache{rank}"
+    os.environ.update(task.get("env", {}), IGG_TUNE_CACHE=str(cache_dir))
+    init_global_grid(*task["nxyz"], device="cpu", quiet=True, **task.get("grid", {}))
+    try:
+        state, params = diffusion3d.setup(*task["nxyz"], init_grid=False, dtype=torch.float64)
+        nsteps = task["nsteps"]
+        if rank == task["local_rank"]:
+            key = make_key("diffusion3d", get_global_grid().nxyz, params.dtype,
+                           gg=get_global_grid(), nsteps=nsteps)
+            TuneCache().store(key, new_entry(key, task["local_config"], source="rank-local"))
+        config = search.apply_tuned_config("diffusion3d", diffusion3d, params, nsteps,
+                                           dict(search._KWARG_DEFAULTS))
+        entries = {p.name: json.loads(p.read_text()) for p in sorted(cache_dir.glob("*.json"))}
+        T, _ = diffusion3d.make_multi_step(params, nsteps, autotune=True)(*state)
+        T_default, _ = diffusion3d.make_multi_step(params, nsteps)(*state)
+        return {"config": as_bytes(config), "cache": as_bytes(entries), "T": T.numpy(),
+                "T_default": T_default.numpy()}
+    finally:
+        finalize_global_grid()
 
 
 def main(argv: list[str]) -> int:

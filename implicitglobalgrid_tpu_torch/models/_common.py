@@ -20,14 +20,6 @@ def params_from(cls, other):
     return cls(**kw)
 
 
-def later(what: str, item: str):
-    """Raise for a feature a later slice of the port brings."""
-    raise NotImplementedError(
-        f"{what} is not in the port yet; it comes with a later slice "
-        f"(ROADMAP.md Queue A item {item})."
-    )
-
-
 #: What the models' ``run()`` docstrings say of the resilience hooks.
 RUN_HOOKS_DOC = """
     Resilience hooks (kwarg > ``IGG_*`` env > off; `utils.resilience`):

@@ -45,7 +45,7 @@ from ..ops.fused_leapfrog import fused_leapfrog_steps
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
 from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
-from ..utils.fields import block_from_numpy, coord_fields, zeros
+from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
 from . import _batched, _common, _fused
 
@@ -201,6 +201,16 @@ def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=
                                           stagger=1, device=device)
 
 
+def _tune_state(params: Params):
+    """Synthetic ones-filled state for autotuner candidate measurement
+    (`tuning.search`): linear updates on ones stay finite, and the fields
+    are this rank's blocks (staggered ``n+1`` faces) on the grid's device,
+    so a measured candidate runs the production step."""
+    nx, ny, nz = global_grid().nxyz
+    return (ones((nx, ny, nz), params.dtype), ones((nx + 1, ny, nz), params.dtype),
+            ones((nx, ny + 1, nz), params.dtype), ones((nx, ny, nz + 1), params.dtype))
+
+
 def make_multi_step(
     params: Params,
     nsteps: int,
@@ -237,15 +247,28 @@ def make_multi_step(
     members.  ``coalesce`` (None: ``IGG_COALESCE``, default on): every
     multi-field exchange of the cadence sends one message per side and
     dtype word width instead of one per field (`ops.halo.update_halo`),
-    bit-identical either way.  ``autotune`` comes with a later slice and
-    raises `NotImplementedError`.
+    bit-identical either way.
+
+    ``autotune`` (None = ``IGG_AUTOTUNE`` env, default off): substitute the
+    cached winner config of this (backend, topology, model, local size,
+    dtype, batch) point into the kwargs above — searching (cost-model
+    pruned, short runs measured on the grid's device) and persisting it on
+    first use (`implicitglobalgrid_tpu_torch.tuning`).  A pure schedule
+    substitution: results stay those of the default config, bit for bit
+    wherever the two cadences round alike.  Explicitly-set kwargs always
+    win — autotune only fills fields left at their defaults.
 
     Differentiable on every cadence (`torch.autograd`); ``fused_k`` runs
     the kernel in the forward and the ``exchange_every=k`` cadence's groups
     in the backward (`models._fused`).
     """
-    if autotune:
-        _common.later("autotune", "15")
+    from ..tuning.search import maybe_autotune
+
+    fused_k, fused_tile, exchange_every, pipelined, coalesce = maybe_autotune(
+        "acoustic3d", params, nsteps, autotune, batch=batch,
+        fused_k=fused_k, fused_tile=fused_tile, exchange_every=exchange_every,
+        pipelined=pipelined, coalesce=coalesce,
+    )
     v_update = _velocity_update(params)
     p_update = _pressure_update(params)
     halo = _batched.update_halo if batch else update_halo

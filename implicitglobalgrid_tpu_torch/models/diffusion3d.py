@@ -39,7 +39,7 @@ from ..ops.fused_stencil import fused_diffusion_steps
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
 from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
-from ..utils.fields import block_from_numpy, coord_fields, zeros
+from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
 from . import _batched, _common, _fused
 
@@ -187,6 +187,15 @@ def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=
                                           stagger=0, device=device)
 
 
+def _tune_state(params: Params):
+    """Synthetic ones-filled state for autotuner candidate measurement
+    (`tuning.search`): the first steps are linear on ones (lap(1) = 0 — no
+    NaN risk) and the fields are this rank's blocks on the grid's device,
+    so a measured candidate runs the production step."""
+    shape = tuple(global_grid().nxyz)
+    return ones(shape, params.dtype), ones(shape, params.dtype)
+
+
 def make_multi_step(
     params: Params,
     nsteps: int,
@@ -230,15 +239,29 @@ def make_multi_step(
     ``batch=True``: every cadence over ``(B, nx, ny, nz)`` batched T and Cp
     (`models._batched`): one kernel launch per group and one exchange per
     dimension for all B members, member for member bit-identical to the
-    unbatched cadence.  ``autotune`` comes with a later slice and raises
-    `NotImplementedError`.
+    unbatched cadence.
+
+    ``autotune`` (None = ``IGG_AUTOTUNE`` env, default off): substitute the
+    cached winner config of this (backend, topology, model, local size,
+    dtype, batch) point into the kwargs above — searching (cost-model
+    pruned, short runs measured on the grid's device) and persisting it on
+    first use (`implicitglobalgrid_tpu_torch.tuning`).  A pure schedule
+    substitution: results stay those of the default config, bit for bit
+    wherever the two cadences round alike.  Explicitly-set kwargs always
+    win — autotune only fills fields left at their defaults.
 
     Differentiable on every cadence (`torch.autograd`, w.r.t. T and Cp);
     ``fused_k`` runs the kernel in the forward and the ``exchange_every=k``
     cadence's groups in the backward (`models._fused`).
     """
-    if autotune:
-        _common.later("autotune", "15")
+    from ..tuning.search import maybe_autotune
+
+    # the diffusion cadence exchanges one field: no coalesce to substitute
+    fused_k, fused_tile, exchange_every, pipelined, _ = maybe_autotune(
+        "diffusion3d", params, nsteps, autotune, batch=batch,
+        fused_k=fused_k, fused_tile=fused_tile, exchange_every=exchange_every,
+        pipelined=pipelined,
+    )
     update = _diffusion_update(params)
     halo = _batched.update_halo if batch else update_halo
     gg = global_grid()

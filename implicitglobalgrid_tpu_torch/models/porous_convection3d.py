@@ -44,7 +44,7 @@ from ..ops.fused_pt import fused_pt_iterations
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
 from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
-from ..utils.fields import block_from_numpy, coord_fields, zeros
+from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
 from . import _batched, _common, _fused
 
@@ -318,6 +318,19 @@ def _pt_schedule(npt: int, w: int, *, even: bool = True):
     return lead, chunks
 
 
+def _tune_state(params: Params):
+    """Synthetic ones-filled state for autotuner candidate measurement
+    (`tuning.search`): finite on ones (linear relaxations), this rank's
+    blocks on the grid's device — a measured candidate runs the production
+    step.  ``npt`` is part of the cache KEY (it changes numerics), so the
+    state carries no tuned physics."""
+    nx, ny, nz = global_grid().nxyz
+    cells = (nx, ny, nz)
+    return (ones(cells, params.dtype), ones(cells, params.dtype),
+            ones((nx + 1, ny, nz), params.dtype), ones((nx, ny + 1, nz), params.dtype),
+            ones((nx, ny, nz + 1), params.dtype))
+
+
 def make_multi_step(
     params: Params,
     nsteps: int,
@@ -360,16 +373,29 @@ def make_multi_step(
     members.  ``coalesce`` (None: ``IGG_COALESCE``, default on): every
     multi-field exchange of the cadence sends one message per side and
     dtype word width instead of one per field (`ops.halo.update_halo`),
-    bit-identical either way.  ``autotune`` comes with a later slice and
-    raises `NotImplementedError`.
+    bit-identical either way.
+
+    ``autotune`` (None = ``IGG_AUTOTUNE`` env, default off): substitute the
+    cached winner config of this (backend, topology, model, local size,
+    dtype, batch) point into the kwargs above — searching (cost-model
+    pruned, short runs measured on the grid's device) and persisting it on
+    first use (`implicitglobalgrid_tpu_torch.tuning`).  A pure schedule
+    substitution: results stay those of the default config, bit for bit
+    wherever the two cadences round alike.  Explicitly-set kwargs always
+    win — autotune only fills fields left at their defaults.
 
     Differentiable on every cadence (`torch.autograd`); ``fused_k`` runs
     the kernel in the forward and the plain PT chunks in the backward
     (`models._fused`), with T an explicit input of every chunk, so dL/dT
     takes the buoyancy term's path through the PT iterations.
     """
-    if autotune:
-        _common.later("autotune", "15")
+    from ..tuning.search import maybe_autotune
+
+    fused_k, fused_tile, exchange_every, pipelined, coalesce = maybe_autotune(
+        "porous_convection3d", params, nsteps, autotune, batch=batch,
+        fused_k=fused_k, fused_tile=fused_tile, exchange_every=exchange_every,
+        pipelined=pipelined, coalesce=coalesce,
+    )
     bx, by = fused_tile if fused_tile is not None else (None, None)
     if (bx is None) != (by is None):
         raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")

@@ -23,6 +23,8 @@ versions take a launch tile and a subset launch (``tile``, ``tile_sel``,
 from __future__ import annotations
 
 from .fused_leapfrog import (  # noqa: F401  (re-export: one envelope and layout)
+    _TILES,
+    check_tile,
     default_tile,
     divergence,
     face_shapes,
@@ -31,9 +33,12 @@ from .fused_leapfrog import (  # noqa: F401  (re-export: one envelope and layout
     pad_faces,
     padded_face_shapes,
     subset_of,
+    tile_fits,
     tile_for,
     unpad_faces,
     validate,
+    window_bytes,
+    window_plane,
 )
 
 #: Launches of the CUDA kernel in this process (CPU calls of the plain

@@ -30,6 +30,11 @@ and the halo exchange's:
 ``IGG_TELEMETRY_MAX_TENANTS``  cap on distinct per-tenant series (>= 1)
 ``IGG_HEARTBEAT_EVERY``   serving-round cadence of the local heartbeat work
 ``IGG_SLO_WINDOW_S``      rolling SLO sub-window length in seconds (> 0)
+``IGG_TRACE_RING``        capacity of the per-process host-span ring (>= 0)
+``IGG_TRACE_SAMPLE``      head-based request-trace sampling rate in [0, 1]
+``IGG_SKEW_WARN``         straggler threshold of the all-ranks skew probe
+``IGG_METRICS_PORT``      live-plane scrape port (0 = ephemeral; unset = off)
+``IGG_METRICS_HOST``      live-plane bind address (default loopback)
 ``IGG_BATCH``             default serving slot-pool capacity (>= 1)
 ``IGG_BATCH_ROUND_STEPS`` default steps per serving round (>= 1)
 ``IGG_SERVE_PORT``        front-door port (0 = ephemeral)
@@ -55,11 +60,34 @@ and the halo exchange's:
 ``IGG_FLEET_IDLE_RETIRE`` idle observations before a spilled pool retires
 ``IGG_FLEET_CANARY_STREAK``  healthy canary observations before promotion
 ``IGG_FLEET_CANARY_P99_S``  canary round-p99 breach threshold in seconds
+``IGG_AUTOTUNE``          default for the models' ``make_multi_step``
+                          ``autotune=`` kwarg (`implicitglobalgrid_tpu_torch.
+                          tuning`; nonzero = on, unset/0 = off): on first
+                          use of a (backend, topology, model, size, dtype,
+                          batch) point, search the schedule-kwarg space
+                          (cost-model-pruned, short measured runs) and
+                          apply the cached winner on every later call —
+                          a pure substitution of existing kwargs, resolved
+                          before the step is built
+``IGG_TUNE_CACHE``        primary directory of the autotuner's on-disk
+                          winner table (unset = ``~/.cache/
+                          implicitglobalgrid_tpu_torch/tune``); the committed
+                          seed layer ``tuning/entries`` is always the
+                          read-only fallback — read per resolve
+``IGG_TUNE_TOPK``         total candidates measured per search (int >= 1,
+                          default 4; `tuning.space.prune` — the default
+                          config always counts among them, so ``1`` can
+                          only ever confirm the default)
+``IGG_TUNE_STEPS``        timed chunk calls per measured candidate (int >=
+                          1, default 3; `tuning.search.measure_candidate`
+                          — short by design: the tuner ranks configs)
 ========================  ====================================================
 
-The resilience, serving, profiling, supervisor and fleet knobs are read per call, not snapshotted at init; their
-names, validation and messages are the JAX package's
-(``utils/config.py``).
+The resilience, serving, profiling, supervisor, fleet and autotuning knobs
+are read per call, not snapshotted at init; their names, validation and
+messages are the JAX package's (``utils/config.py``).  This table is the
+port's env-var documentation: the ``knob-decl`` analyzer
+(`analysis.knobs`) holds every ``IGG_*`` the package references to it.
 """
 
 from __future__ import annotations
@@ -501,3 +529,35 @@ def supervise_poll_env() -> float | None:
     """``IGG_SUPERVISE_POLL_S``: supervisor liveness/health polling cadence
     in seconds (> 0, default 0.5)."""
     return _float_env("IGG_SUPERVISE_POLL_S", exclusive_minimum=0)
+
+
+# -- Autotuning knobs (read per resolve, before the step is built) -------------
+
+
+def autotune_env() -> bool | None:
+    """``IGG_AUTOTUNE``: default for ``make_multi_step(autotune=)``.
+
+    ``None`` = unset (off unless the kwarg says otherwise); resolved when
+    the step is built, so a step once built never changes its config.
+    """
+    val = _int_env("IGG_AUTOTUNE")
+    return None if val is None else val > 0
+
+
+def tune_cache_env() -> str | None:
+    """``IGG_TUNE_CACHE``: primary winner-table directory (unset = the
+    per-user default, `tuning.cache.default_cache_dir`)."""
+    val = os.environ.get("IGG_TUNE_CACHE")
+    return val or None
+
+
+def tune_topk_env() -> int | None:
+    """``IGG_TUNE_TOPK``: total candidates measured per search, the default
+    config included (>= 1, default 4)."""
+    return _int_env("IGG_TUNE_TOPK", minimum=1)
+
+
+def tune_steps_env() -> int | None:
+    """``IGG_TUNE_STEPS``: timed chunk calls per measured candidate (>= 1,
+    default 3)."""
+    return _int_env("IGG_TUNE_STEPS", minimum=1)

@@ -143,10 +143,15 @@ def test_two_process_solver_matches_jax_two_devices(step_kw, tmp_path):
                                        atol=1e-12 * scale, err_msg=f"{name} rank {rank}")
 
 
-def test_later_slices_raise_not_implemented():
+def test_later_slices_raise_not_implemented(tmp_path, monkeypatch):
     state, params = ta.setup(8, 8, 8, dtype=torch.float64, quiet=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ta.make_multi_step(params, 2, autotune=True)
+    # Ported since: autotune=True (Queue A item 15, tests/test_torch_tuning.py)
+    # searches, stores and applies a winner, a pure schedule substitution;
+    monkeypatch.setenv("IGG_TUNE_CACHE", str(tmp_path))
+    tuned = ta.make_multi_step(params, 2, autotune=True)(*state)
+    for a, b in zip(tuned, ta.make_multi_step(params, 2)(*state)):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    assert len(list(tmp_path.glob("acoustic3d_8x8x8_float64_*.json"))) == 1
     # Ported since: coalesce=True (Queue A leftover 2, tests/test_torch_coalesced.py)
     # runs, bit for bit with coalesce=False;
     assert all(torch.equal(a, b) for a, b in zip(

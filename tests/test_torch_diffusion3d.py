@@ -141,12 +141,16 @@ def test_two_process_solver_matches_jax_two_devices(step_kw, tmp_path):
         np.testing.assert_allclose(out["T"], want, rtol=1e-12, atol=1e-12 * np.abs(TJ).max())
 
 
-def test_later_slices_raise_not_implemented():
+def test_later_slices_raise_not_implemented(tmp_path, monkeypatch):
     (T, Cp), params = td.setup(8, 8, 8, dtype=torch.float64, quiet=True, device="cpu")
-    for kw in (dict(autotune=True),):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            td.make_multi_step(params, 2, **kw)
-    # Ported since: batch=True (Queue A item 10, tests/test_torch_batched.py);
+    # Ported since: autotune=True (Queue A item 15, tests/test_torch_tuning.py)
+    # searches, stores and applies a winner, a pure schedule substitution;
+    monkeypatch.setenv("IGG_TUNE_CACHE", str(tmp_path))
+    tuned, _ = td.make_multi_step(params, 2, autotune=True)(T, Cp)
+    torch.testing.assert_close(tuned, td.make_multi_step(params, 2)(T, Cp)[0], rtol=1e-12,
+                               atol=1e-12)
+    assert len(list(tmp_path.glob("diffusion3d_8x8x8_float64_*.json"))) == 1
+    # batch=True (Queue A item 10, tests/test_torch_batched.py);
     # (Queue A item 9): pipelined belongs to the group cadences,
     # as in JAX, and hide_comm runs (tests/test_torch_overlap.py).
     with pytest.raises(ValueError, match="per-step path has no group schedule"):

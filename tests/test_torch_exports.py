@@ -16,9 +16,7 @@ import implicitglobalgrid_tpu_torch as tigg
 
 #: Names of the JAX package's ``__all__`` that the port does not export yet,
 #: with the ROADMAP Queue A item (or leftover) that brings each.
-NOT_YET_PORTED = {
-    "analysis": "15",
-}
+NOT_YET_PORTED: dict = {}
 #: JAX-only by design: the names of the device mesh's axes.
 JAX_MESH_ONLY = {"AXIS_NAMES"}
 
