@@ -247,6 +247,27 @@ and then prints no result line):
    prints its wall time.  ``--tune-out DIR`` also writes the winners'
    entries to DIR.
 
+16. The example twins, the chunked gather and the analysis twins.  (a)
+   The three fused examples (``examples/torch_*_gpu_fused.py``) through
+   their functions at phases 3, 5 and 6's configs (one warm-up chunk and
+   one timed chunk: 32 diffusion steps, 48 acoustic steps, 4 porous
+   steps), launch counts set to 0 before each and read after (the model's
+   kernel > 0); each final field equals, bit for bit, the same cadence
+   replayed with every kernel call replaced by its plain version (the
+   wrappers' ``*_reference``); the examples' own ms per step is printed.
+   Then ``torch_diffusion3d_multidevice_novis`` on one rank, 256^3 float32
+   20 steps (finite, its ms per step), and at 24^3 float64 against the
+   same example on the CPU (1e-12 relative).  (b) ``gather`` of a 512^3
+   float32 field with signed zeros through the local path and the forced
+   chunked path at ``IGG_GATHER_BATCH`` 1 and 8: bit for bit against
+   ``A.cpu().numpy()``, ``last_gather_stats`` as the plan says, the
+   device transient (``max_memory_allocated`` after a reset) at most
+   ``batch`` blocks plus one, ms and MiB/s.  (c) ``ptxas-budget`` over
+   phase 1's builds runs (not skipped) and is clean against
+   ``analysis/ptxas_baseline.json``; each kernel entry's registers,
+   spills, stack and static shared memory are printed.  (d) ``python -m
+   implicitglobalgrid_tpu_torch.analysis`` runs all nine analyzers clean.
+
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at 256^3 float32 and
@@ -793,8 +814,10 @@ def main() -> None:
     phase14(torch, igg, reset_counts, counts, card)
     PHASE[0] = "15"
     phase15(torch, igg, reset_counts, counts, card, tune_out=tune_out)
+    PHASE[0] = "16"
+    phase16(torch, igg, reset_counts, counts, card)
 
-    print(f"chip_smoke: phases 1-15 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(f"chip_smoke: phases 1-16 passed in {time.perf_counter() - t_start!r} s {card}")
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2681,6 +2704,199 @@ def phase15(torch, igg, reset_counts, counts, card, tune_out=None, n=256, device
             igg.finalize_global_grid()
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 15: {time.perf_counter() - t_phase!r} s {card}")
+
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The models' kernel calls replaced by their plain versions (each
+    wrapper's ``*_reference``, same signature): the same cadence, with the
+    kernels' rounding, and no launch."""
+    from implicitglobalgrid_tpu_torch.models import acoustic3d, diffusion3d, porous_convection3d
+    from implicitglobalgrid_tpu_torch.ops import fused_leapfrog as fl
+    from implicitglobalgrid_tpu_torch.ops import fused_pt as fp
+    from implicitglobalgrid_tpu_torch.ops import fused_stencil as fs
+
+    swaps = ((diffusion3d, "fused_diffusion_steps", fs.fused_diffusion_steps_reference),
+             (acoustic3d, "fused_leapfrog_steps", fl.fused_leapfrog_steps_reference),
+             (porous_convection3d, "fused_pt_iterations", fp.fused_pt_iterations_reference))
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, ref in swaps:
+            setattr(mod, name, ref)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout, as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: Phase 16a: each fused example twin at its main path's config (phases 3,
+#: 5 and 6), steps cut: example, function, kwargs, model module, its
+#: kernel, the steps of one chunk call, chunk calls (a warm-up and the
+#: timed ones).
+EXAMPLE_RUNS = {
+    "diffusion3d": ("torch_diffusion3d_gpu_fused", "diffusion3d_fused",
+                    dict(nt=16, k=4, periodx=1, periody=1, periodz=1), "fused_diffusion_steps",
+                    16, 2),
+    "acoustic3d": ("torch_acoustic3d_gpu_fused", "acoustic3d_fused",
+                   dict(nt=24, k=6, periodz=1), "fused_leapfrog_steps", 24, 2),
+    "porous_convection3d": ("torch_porous_convection3d_gpu_fused", "porous_convection3d_fused",
+                            dict(nt=2, w=6, npt=12, periodz=1, overlapx=14, overlapy=14,
+                                 overlapz=14), "fused_pt_iterations", 2, 2),
+}
+
+
+def phase16(torch, igg, reset_counts, counts, card, n=256, ngather=512, device="cuda") -> None:
+    """Phase 16: the example twins, the chunked gather, the ptxas budget
+    and the full analysis suite (see the module docstring).  ``n``,
+    ``ngather`` and ``device`` exist for a rehearsal on the CPU."""
+    import importlib
+    import io
+
+    import numpy as np
+
+    from implicitglobalgrid_tpu_torch.analysis import core as acore
+    from implicitglobalgrid_tpu_torch.analysis import ptxas
+    from implicitglobalgrid_tpu_torch.ops import gather as gmod
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # -- 16a: the fused example twins, bit for bit with the plain cadence --
+    for model, (example, func, kw, kernel, chunk, calls) in EXAMPLE_RUNS.items():
+        module = importlib.import_module(f"implicitglobalgrid_tpu_torch.models.{model}")
+        run = getattr(load_example(example), func)
+        reset_counts()
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            got = run(nx=n, device=device, **kw)
+        sync()
+        launched = counts()
+        if cuda and not launched[kernel]:
+            fail(f"16a {example}: no {kernel} launch counted ({launched})")
+        if igg.grid_is_initialized():
+            fail(f"16a {example}: the example left its grid initialized")
+        setup_kw = {k: v for k, v in kw.items() if k not in ("nt", "k", "w")}
+        k = kw.get("k", kw.get("w"))
+        setup_kw = {"overlapx": 2 * k, "overlapy": 2 * k, "overlapz": 2 * k, **setup_kw}
+        state, params = module.setup(n, n, n, dtype=torch.float32, quiet=True, device=device,
+                                     **setup_kw)
+        with plain_kernels():
+            step = module.make_multi_step(params, chunk, fused_k=k)
+            for _ in range(calls):
+                state = step(*state)
+        sync()
+        igg.finalize_global_grid()
+        want = state[0]
+        if not torch.isfinite(got).all():
+            fail(f"16a {example}: non-finite output")
+        same = torch.equal(got, want)
+        print(f"phase 16a: {example}.{func}(nx={n}, {kw}): launches {launched}; final field "
+              f"vs the same cadence with the plain versions: bit for bit {same}; "
+              f"{' | '.join(said.getvalue().split(chr(10))).strip(' |')} {card}")
+        if not same:
+            fail(f"16a {example}: max|kernel-plain| = {float((got - want).abs().max())!r}")
+        del got, want, state
+    novis = load_example("torch_diffusion3d_multidevice_novis").diffusion3d
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        T = novis(nx=n, nt=20, device=device, dtype=torch.float32)
+    if not (torch.isfinite(T).all() and float(T.max()) > 0):
+        fail("16a torch_diffusion3d_multidevice_novis: output not finite or zeroed")
+    small = [novis(nx=24, nt=8, device=d, dtype=torch.float64, quiet=True).cpu()
+             for d in (device, "cpu")]
+    rel = float((small[0] - small[1]).abs().max() / small[1].abs().max())
+    print(f"phase 16a: torch_diffusion3d_multidevice_novis on one rank, {n}^3 f32 20 steps: "
+          f"{' | '.join(said.getvalue().split(chr(10))).strip(' |')}; 24^3 f64 8 steps vs the CPU: max rel diff {rel!r} "
+          f"(< 1e-12) {card}")
+    if not rel < 1e-12:
+        fail(f"16a novis: {device} vs cpu differ by {rel!r}")
+    del T, small
+
+    # -- 16b: gather through the local and the chunked path ----------------
+    igg.init_global_grid(ngather, ngather, ngather, quiet=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(16)
+    A = torch.randn((ngather,) * 3, generator=gen, device=device)
+    A[::7, ::5, ::3] = -0.0
+    want = A.cpu().numpy()
+    block = want.nbytes
+    saved = os.environ.get("IGG_GATHER_BATCH")
+    try:
+        for label, batch, force in (("local", None, False), ("chunked", 1, True),
+                                    ("chunked", 8, True)):
+            if batch is not None:
+                os.environ["IGG_GATHER_BATCH"] = str(batch)
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            G = igg.gather(A, _force_chunked=force)
+            secs = time.perf_counter() - t0
+            transient = torch.cuda.max_memory_allocated() - base if cuda else 0
+            stats = gmod.last_gather_stats
+            plan = {"path": "local", "host_bytes": block, "fetches": 0, "block_bytes": block}
+            if force:
+                plan = {"path": "chunked", "host_bytes": block, "fetches": 1, "blocks": 1,
+                        "batch": 1, "block_bytes": block}
+            exact = G.shape == want.shape and np.array_equal(G.view(np.uint32),
+                                                             want.view(np.uint32))
+            print(f"phase 16b: gather {ngather}^3 f32 ({block / 2**20!r} MiB) {label}"
+                  f"{'' if batch is None else f' IGG_GATHER_BATCH={batch}'}: {secs * 1e3!r} ms, "
+                  f"{block / 2**20 / secs!r} MiB/s; bit for bit {exact}; stats {stats}; "
+                  f"device transient {transient} B (bound {(batch or 0) * block + block} B) "
+                  f"{card}")
+            if not exact or stats != plan:
+                fail(f"16b {label}: bit for bit {exact}, stats {stats} (plan {plan})")
+            if transient > (batch or 0) * block + block:
+                fail(f"16b {label}: device transient {transient} B over the bound")
+            del G
+    finally:
+        if saved is None:
+            os.environ.pop("IGG_GATHER_BATCH", None)
+        else:
+            os.environ["IGG_GATHER_BATCH"] = saved
+        igg.finalize_global_grid()
+    del A, want
+
+    # -- 16c: the ptxas budget over phase 1's builds --------------------
+    report = acore.run(["ptxas-budget"], baseline=None)
+    if cuda:
+        if report.ran != ["ptxas-budget"] or report.findings or report.errors:
+            fail(f"16c: ptxas-budget is not clean:\n{report.human()}")
+        for src, entries in ptxas.census().items():
+            for entry, m in entries.items():
+                print(f"phase 16c: {src} {entry}: {m['registers']} registers, "
+                      f"{m['spill_stores']}/{m['spill_loads']} B spill stores/loads, "
+                      f"{m['stack_bytes']} B stack, {m['smem_bytes']} B static shared memory")
+    print(f"phase 16c: ptxas-budget: {report.human().splitlines()[-1]}")
+
+    # -- 16d: the full analysis suite --------------------------------------
+    lint = subprocess.run([sys.executable, "-m", "implicitglobalgrid_tpu_torch.analysis"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    last = lint.stdout.strip().splitlines()[-1:]
+    print(f"phase 16d: python -m implicitglobalgrid_tpu_torch.analysis exited "
+          f"{lint.returncode}: {last}")
+    if lint.returncode != 0 or (cuda and last != [
+            f"analysis: {len(acore.REGISTRY)} analyzer(s) ran — clean"]):
+        fail(f"16d: the analysis suite is not clean with every analyzer:\n{lint.stdout}\n"
+             f"{lint.stderr}")
+    print(f"phase 16: {time.perf_counter() - t_phase!r} s {card}")
+
 
 if __name__ == "__main__":
     main()

@@ -73,6 +73,25 @@ Tasks:
   this rank's T as ``<p>T`` (a ``worker_crash`` fault ends the process
   there).
 
+* ``"gather"``: the chunked `gather`.  For each entry of ``grids``
+  (``nxyz``, ``grid``, ``gathers``) the grid is brought up (keeping the
+  process group) and each gather runs on this rank's block of
+  ``inputs[name]`` at ``shape`` (plus the rank on ranks > 0 with ``offset_by_rank``),
+  under ``IGG_GATHER_BATCH=batch``, with ``root`` and ``dedup``; with
+  ``out`` the root passes a zero ``A_global`` of ``out_size`` elements of
+  ``out_dtype``.  Saved as ``<key>`` on the root (the result or the filled
+  ``A_global``), ``<key>_err`` (a ``ValueError``'s message), and on every
+  rank ``<key>_stats`` (``last_gather_stats``, JSON bytes) and
+  ``<key>_peak`` (the most bytes of the root's receive buffers alive at
+  once).
+
+* ``"examples"``: the port's example twins (``examples/torch_*.py``) under a
+  gloo group the worker brings up itself, so that each twin's
+  `finalize_global_grid` keeps it.  ``calls`` maps a key to ``[example
+  file stem, function, kwargs]`` (``dtype`` by name); a tensor result is
+  saved as ``<key>``, a list of frames as ``<key><i>`` with their count as
+  ``<key>_n``.
+
 * ``"serving"``: the serving front door over a diffusion pool
   (`serving.FrontDoor`).  `serving.frontdoor.broadcast_control` of rank
   0's ``message`` (the others pass None), saved as ``bcast`` (JSON bytes),
@@ -268,6 +287,10 @@ def _run(task: dict) -> dict:
         return _run_tracing(task)
     if task["kind"] == "tuning":
         return _run_tuning(task)
+    if task["kind"] == "gather":
+        return _run_gather(task, inputs)
+    if task["kind"] == "examples":
+        return _run_examples(task)
     init_global_grid(*task["nxyz"], device="cpu", quiet=True, **task.get("grid", {}))
     try:
         if task["kind"] == "halo":
@@ -570,6 +593,100 @@ def _run_resilience(task: dict, inputs: dict) -> dict:
             raise ValueError(f"unknown resilience action {do!r}")
     if grid_is_initialized():
         finalize_global_grid()
+    return out
+
+
+def _run_gather(task: dict, inputs: dict) -> dict:
+    """The ``"gather"`` task (see the module docstring)."""
+    import weakref
+
+    from . import finalize_global_grid, gather, init_global_grid
+    from .ops import gather as gather_mod
+    from .utils.fields import block_from_numpy
+
+    rank = int(os.environ["RANK"])
+    out = {}
+    live = []  # weak references to the root's receive buffers of the last chunk
+    peak = [0]  # most receive-buffer bytes alive at once, over every chunk
+    messages = gather_mod._chunk_messages
+
+    def probed(words, ranks, me, root):
+        ops, bufs = messages(words, ranks, me, root)
+        alive = sum(b().numel() * b().element_size() for b in live if b() is not None)
+        live[:] = [weakref.ref(b) for b in bufs.values()]
+        peak[0] = max(peak[0], alive + sum(b.numel() * b.element_size() for b in bufs.values()))
+        return ops, bufs
+
+    gather_mod._chunk_messages = probed
+    saved = os.environ.get("IGG_GATHER_BATCH")
+    try:
+        for g in task["grids"]:
+            init_global_grid(*g["nxyz"], device="cpu", quiet=True, **g.get("grid", {}))
+            try:
+                for c in g["gathers"]:
+                    A = block_from_numpy(inputs[c["name"]], tuple(c["shape"]))
+                    if c.get("offset_by_rank") and rank:
+                        A = A + rank
+                    os.environ["IGG_GATHER_BATCH"] = str(c.get("batch", 8))
+                    buf = None
+                    if c.get("out") and rank == c.get("root", 0):
+                        buf = np.zeros(c["out_size"], np.dtype(c["out_dtype"]))
+                    peak[0] = 0
+                    key = c["key"]
+                    try:
+                        got = gather(A, buf, root=c.get("root", 0), dedup=c.get("dedup", False))
+                    except ValueError as e:
+                        out[f"{key}_err"] = np.frombuffer(str(e).encode(), np.uint8)
+                        got = None
+                    if got is not None:
+                        out[key] = got
+                    elif buf is not None and f"{key}_err" not in out:
+                        out[key] = buf
+                    out[f"{key}_stats"] = np.frombuffer(
+                        json.dumps(gather_mod.last_gather_stats).encode(), np.uint8)
+                    out[f"{key}_peak"] = np.array(peak[0])
+            finally:
+                finalize_global_grid(finalize_distributed=False)
+    finally:
+        gather_mod._chunk_messages = messages
+        if saved is None:
+            os.environ.pop("IGG_GATHER_BATCH", None)
+        else:
+            os.environ["IGG_GATHER_BATCH"] = saved
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def _run_examples(task: dict) -> dict:
+    """The ``"examples"`` task (see the module docstring)."""
+    import importlib.util
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    out = {}
+    try:
+        for key, (name, func, kwargs) in task["calls"].items():
+            spec = importlib.util.spec_from_file_location(
+                name, _REPO_ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            kwargs = dict(kwargs)
+            if "dtype" in kwargs:
+                kwargs["dtype"] = getattr(torch, kwargs["dtype"])
+            got = getattr(mod, func)(**kwargs)
+            if isinstance(got, torch.Tensor):
+                out[key] = got.numpy()
+            else:
+                out[f"{key}_n"] = np.array(len(got))
+                out.update({f"{key}{i}": np.asarray(f) for i, f in enumerate(got)})
+    finally:
+        dist.destroy_process_group()
     return out
 
 

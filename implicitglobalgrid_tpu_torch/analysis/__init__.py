@@ -1,76 +1,53 @@
 """``igg.analysis`` — the port's static-analysis suite (the JAX package's
 ``analysis``, over what the port has to read).
 
-Three analyzers, each a host pass over source or data (`core.REGISTRY`):
+Nine analyzers, each a host pass (`core.REGISTRY`):
 
 * ``collective-consistency`` — cross-rank collective-ordering divergence
   (the distributed-deadlock class): the AST rank-guard pass over the
   package, with the port's collective vocabulary, plus the per-simulated-
-  rank censuses of the host plans (`tuning.search.control_plan`,
-  `supervisor.policy.recovery_plan`, `fleet.policy.fleet_plan`,
-  `integrity.plan.integrity_plan`);
+  rank censuses of the host plans (`ops.gather.collective_plan`,
+  `tuning.search.control_plan`, `supervisor.policy.recovery_plan`,
+  `fleet.policy.fleet_plan`, `integrity.plan.integrity_plan`);
 * ``knob-decl`` — every ``IGG_*`` the package references is declared and
   documented in ``utils/config.py``;
 * ``tune-cache-valid`` — the autotuner's committed seed layer parses and
-  holds admissible configs.
+  holds admissible configs;
+* ``stream-aliasing`` (JAX: pallas-aliasing) — every tensor a launch on a
+  second CUDA stream touches is waited for and ``record_stream``'d, and
+  the ``carry_in`` wrappers launch on the current stream (`aliasing`);
+* ``overlap-independence`` — the pipelined group's mid pass waits for the
+  group's input only, never for its exchange, and the received planes land
+  after the join (the real schedule under a stream shim, `overlap`);
+* ``collective-budget`` — each model's exchange holds its ``P2POp``s per
+  dimension to the committed budget, per field and batched as controls
+  (a recording process group, `budget`);
+* ``perm-validity`` (JAX: the traced permutation checks) — the exchange's
+  (source, target) pairs form a partial permutation with matched receives
+  on every simulated rank (`perms`);
+* ``grad-soundness`` — no detached input on a differentiable entry's
+  ``grad_fn`` graph, and the backward sends cotangents back (`gradflow`);
+* ``ptxas-budget`` (JAX: hlo-cost) — registers, spills, stack and shared
+  memory per kernel entry against ``analysis/ptxas_baseline.json``; it
+  needs a build of the kernels and reports itself skipped without one
+  (`ptxas`).
 
 Entry points: `run` (in-process), ``python -m
-implicitglobalgrid_tpu_torch.analysis`` (CLI; SARIF with ``--sarif``),
-``tests/test_torch_analysis.py``.  Findings, fingerprints, the baseline
-file (``analysis/baseline.json``) and exit codes are the JAX package's.
+implicitglobalgrid_tpu_torch.analysis`` (CLI; SARIF with ``--sarif``;
+``refresh`` rewrites the ptxas baseline), ``tests/test_torch_analysis.py``.
+Findings, fingerprints, the baseline file (``analysis/baseline.json``) and
+exit codes are the JAX package's.
 
 Design note: the JAX passes and modules with no torch twin here.
 
 **knob-binding.** In JAX it flags ``os.environ``/``IGG_*`` reads reachable
 from jit/shard_map/Pallas-traced code, whose values are baked into a cached
 executable at trace time.  The port runs eagerly and traces nothing: every
-env read runs when its call runs, and the values a built step keeps
-(``make_multi_step``'s closures, the autotuner's resolve) are read when it
-is built, as documented.  The hazard returns with a captured CUDA graph,
-which binds every value at capture; a twin would read the call graph from
-the captured callable to its env reads, and comes with that graph (ROADMAP
-Queue A leftover 8).
-
-**pallas-aliasing.** In JAX it holds ``input_output_aliases`` and donation
-declarations against the kernels' actual in-place writes.  The port's
-kernels write fresh outputs, except a pipelined mid pass, which writes into
-its ring pass's outputs (``carry_in``) on a second CUDA stream: there the
-hazard is stream order and ``record_stream``, which no declaration states.
-A twin would read the wrappers' and `models._fused`'s ASTs and require a
-stream wait and a ``record_stream`` for every tensor a launch on another
-stream writes or reads (leftover 12).
-
-**overlap-independence.** In JAX it proves, on the traced program, that
-the pipelined schedule's interior kernel does not depend on the group's
-permutes.  The port's schedule is streams: the mid pass waits only for
-the group's input, the exchange starts from the ring pass; a stray wait
-would serialize it silently.  A twin would read the stream events of one
-traced group (`utils.profiling`, ``chip_smoke.py`` phase 13b) and require
-the mid pass to start before the exchange ends (leftover 12).
-
-**collective-budget.** In JAX it bounds the ``ppermute`` count per
-(dimension, width group) of the traced exchanges, and their bytes in HLO.
-The port has the hazard (a coalescing regression sends one message per
-field); its CPU tests count ``P2POp``s per dimension today
-(``_workers._count_p2p``).  A twin would run each model's exchange on a
-recording process group and hold the counts to a committed budget
-(leftover 12).
-
-**hlo-cost.** In JAX it holds a static HLO cost model (bytes, flops,
-launches, peak buffers) of the production matrix against a versioned
-baseline.  The port has no HLO; what its kernels cost is fixed by their
-CUDA sources and read on the card.  The nearest twin would hold ``nvcc
--Xptxas -v``'s registers, spills and shared memory per kernel against a
-committed baseline; it needs ``nvcc``, so it runs in ``chip_smoke.py``
-phase 1, not in the CPU tests (leftover 12).
-
-**grad-soundness.** In JAX it flags cotangent-dropping primitives on a
-differentiable entry's tangent path and censuses the backward's
-collectives.  The port's hazard is a cut autograd graph: its kernels are
-forward-only (a kernel call under grad raises) and its exchange has an
-explicit adjoint (`ops.halo._Exchange`); finite-difference tests pin both.
-A twin would walk each differentiable entry's ``grad_fn`` graph for
-detached inputs and count the backward's ``P2POp``s (leftover 12).
+env read runs when its call runs, and the values a built step keeps are
+read when it is built, as documented.  The hazard returns with a captured
+CUDA graph, which binds every value at capture; a twin would read the call
+graph from the captured callable to its env reads, and comes with that
+graph (ROADMAP Queue A leftover 8).
 
 **bench-regression.** In JAX it holds the committed ``BENCH_r*.json``
 trajectory within per-metric tolerance bands; its sibling
@@ -78,26 +55,11 @@ trajectory within per-metric tolerance bands; its sibling
 TPU numbers, which are not the port's; the port has no H100 bench records
 and no ``BENCHMARK.json`` yet.  Both wait for those records (leftover 13).
 
-**The traced collective checks.** In JAX they require each traced
-``ppermute`` to be a valid partial permutation and no collective to sit
-inside a ``cond``.  The port traces nothing: its point-to-point partners
-come from `parallel.topology`'s neighbour table at run time, and Python
-control flow is what the rank-guard pass reads.  A twin would evaluate the
-exchange's (source, target) pairs on every simulated rank of small grids
-and require a permutation per dimension and side (leftover 12).
-
-**utils/aot.py.** JAX's ahead-of-time compilation for TPU topologies
-without devices.  The port compiles its kernels with ``nvcc`` on first
-use, keyed by a hash of source and flags (`ops._kernels`): nothing to
-port, no twin needed.
-
-**utils/compat.py.** JAX's shims over ``shard_map`` and Pallas APIs across
-JAX versions.  The port calls torch's public API directly: no twin needed.
-
-**utils/hlo_analysis.py.** JAX's parser of optimized HLO for byte and
-collective censuses.  The port has no HLO; its byte counts are computed
-from shapes (``chip_smoke.py``'s bounds, `tuning.space.modeled_cost`): no
-twin needed.
+**utils/aot.py, utils/compat.py, utils/hlo_analysis.py.** JAX's
+ahead-of-time compilation, version shims and HLO parser.  The port
+compiles its kernels with ``nvcc`` on first use, keyed by a hash of source
+and flags (`ops._kernels`), calls torch's public API directly, and has no
+HLO (its byte counts come from shapes): no twin needed.
 """
 
 from .core import (

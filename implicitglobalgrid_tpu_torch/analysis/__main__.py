@@ -9,9 +9,12 @@ Examples::
     python -m implicitglobalgrid_tpu_torch.analysis --changed-only=main  # merge-base diff
     python -m implicitglobalgrid_tpu_torch.analysis --json
     python -m implicitglobalgrid_tpu_torch.analysis --sarif out.sarif
+    python -m implicitglobalgrid_tpu_torch.analysis refresh --justify-all "why"
+        # rebuild the kernels and rewrite analysis/ptxas_baseline.json
 
 With no analyzer named (or ``--all``) every analyzer runs: the port's suite
-is host passes only, milliseconds each.  Exit code: 0 = clean (or
+is host passes, seconds in all (``ptxas-budget`` reports itself skipped
+where no kernel was built).  Exit code: 0 = clean (or
 WARNING-only), 1 = CRITICAL/ERROR findings (WARNINGs too under
 ``--strict``), 2 = an analyzer crashed.  Findings are suppressed through
 the baseline file (justified suppressions only); ``--no-baseline`` shows
@@ -29,6 +32,11 @@ from .core import REGISTRY
 
 
 def main(argv=None) -> int:
+    raw = sys.argv[1:] if argv is None else list(argv)
+    if raw[:1] == ["refresh"]:
+        from .ptxas import refresh_main
+
+        return refresh_main(raw[1:])
     p = argparse.ArgumentParser(prog="python -m implicitglobalgrid_tpu_torch.analysis",
                                 description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -66,7 +74,6 @@ def main(argv=None) -> int:
     changed = None
     if args.changed_only is not None:
         ref = None if args.changed_only is True else args.changed_only
-        raw = sys.argv[1:] if argv is None else list(argv)
         if ref is not None and ref in REGISTRY and not any(
                 a.startswith("--changed-only=") for a in raw):
             # argparse would silently eat an analyzer name as the git ref

@@ -18,14 +18,16 @@ analyzer reads both:
    the port's: `torch.distributed`'s collectives and point-to-point calls,
    plus the port's own transport entry points (`COLLECTIVE_CALL_NAMES`).
 2. **Host-plan census** — host-side orchestration exposes pure
-   ``*_plan(is_root, ...)`` functions (the autotuner's resolve, the
-   supervisor's recovery, the fleet's directives, the integrity plane's
-   guarded step), each evaluated per simulated rank (root and every
+   ``*_plan(is_root, ...)`` functions (the chunked gather, the autotuner's
+   resolve, the supervisor's recovery, the fleet's directives, the
+   integrity plane's guarded step), each evaluated per simulated rank (root and every
    non-root): the sequences must be identical.  Additional censuses
    register via `register_census_provider`.
 
 The JAX package's third source, the traced-jaxpr perm and ``cond`` checks,
-has no counterpart here (see the package docstring's design note).
+is the ``perm-validity`` analyzer here (`analysis.perms`): the port traces
+nothing, so it runs the exchange's real send/receive code per simulated
+rank, and Python control flow is what the rank-guard pass reads.
 """
 
 from __future__ import annotations
@@ -305,8 +307,7 @@ def check_rank_consistency(census: RankCensus) -> list[Finding]:
 
 #: Census providers: callables ``ctx -> iterable[RankCensus]``.  Extensible
 #: so host-side orchestration added later (and test fixtures) plug into the
-#: same detector.  The JAX package's gather-plan provider waits for the
-#: port's chunked gather plan (ROADMAP Queue A leftover 4).
+#: same detector.
 CENSUS_PROVIDERS: list = []
 
 
@@ -315,6 +316,43 @@ def register_census_provider(fn):
     (decorator-friendly); remove with ``CENSUS_PROVIDERS.remove(fn)``."""
     CENSUS_PROVIDERS.append(fn)
     return fn
+
+
+#: (dims, batch, root) grids the gather plan is simulated over (the JAX
+#: package's): small, with a ragged tail and a non-default root.
+_GATHER_PLAN_CONFIGS = (
+    ((2, 2, 2), 3, 0),
+    ((2, 2, 2), 8, 7),
+    ((4, 2, 1), 3, 5),
+    ((1,), 1, 0),
+)
+
+
+def gather_plan_censuses(ctx: Context):
+    """The chunked gather's schedule per simulated rank.
+
+    `ops.gather.collective_plan` is the single source of `_gather_chunked`'s
+    chunk order; its ``is_root`` parameter exists precisely so this census
+    can prove the schedule ignores it (the JAX package's PR-1 hang was
+    non-roots running a different in-flight schedule than the root).
+    """
+    from ..ops.gather import collective_plan
+
+    for dims, batch, root in _GATHER_PLAN_CONFIGS:
+        nprocs = 1
+        for d in dims:
+            nprocs *= d
+        yield RankCensus(
+            name=f"host/gather_chunked[dims={dims},batch={batch},root={root}]",
+            sequences={
+                rank: tuple(("block_fetch",) + tuple(rec[1:])
+                            for rec in collective_plan(dims, batch, is_root=(rank == root)))
+                for rank in range(nprocs)
+            },
+        )
+
+
+register_census_provider(gather_plan_censuses)
 
 
 def tuning_plan_censuses(ctx: Context):

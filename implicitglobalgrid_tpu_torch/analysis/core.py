@@ -13,9 +13,10 @@ its orchestration exposes (`analysis.collectives`), its ``IGG_*`` knob table
 runner with a baseline/suppression file and JSON + human reporters; the
 fingerprints, exit codes and the SARIF export are the JAX package's.
 
-The JAX package's jaxpr and HLO passes have no torch twin here (the package
-docstring's design note says why), so `Context` builds only the package's
-ASTs.  This module imports no torch.
+The JAX package's jaxpr and HLO passes have torch twins that drive the
+port's own code or read the CUDA compiler's report instead (the package
+docstring lists them); `Context` builds only the package's ASTs, and this
+module imports no torch.
 """
 
 from __future__ import annotations
@@ -96,6 +97,12 @@ class Finding:
         }
 
 
+class Skipped(Exception):
+    """Raised by an analyzer that cannot run here (its input does not exist
+    on this machine, e.g. no ``nvcc`` build log): the runner lists it under
+    ``skipped`` with the reason, never as clean."""
+
+
 # -- Analyzer registry --------------------------------------------------------
 
 
@@ -106,9 +113,10 @@ class AnalyzerSpec:
     ``paths`` are repo-relative glob patterns used by ``--changed-only`` —
     the analyzer runs iff some changed file matches one of them (changes to
     the analysis framework or its scripts always select every analyzer).
-    ``cost``: ``"ast"`` passes read source and data only (every pass of
-    the port's suite; the JAX package also has ``"trace"`` and
-    ``"compile"`` passes over jaxprs and HLO).
+    ``cost``: ``"ast"`` passes read source and data only, ``"trace"``
+    passes drive the port's own code on the CPU (simulated ranks, a
+    recording process group, a stream shim), ``"compile"`` passes read the
+    CUDA compiler's report (the JAX package's are over jaxprs and HLO).
     """
 
     name: str
@@ -168,6 +176,67 @@ REGISTRY: dict[str, AnalyzerSpec] = {
                 "implicitglobalgrid_tpu_torch/ops/**",
             ),
             cost="ast",
+        ),
+        AnalyzerSpec(
+            name="stream-aliasing",
+            module="implicitglobalgrid_tpu_torch.analysis.aliasing",
+            func="run",
+            title="every tensor a launch on another CUDA stream touches is waited for "
+            "and record_stream'd; carry_in wrappers launch on the current stream",
+            paths=("implicitglobalgrid_tpu_torch/models/**",
+                   "implicitglobalgrid_tpu_torch/ops/**"),
+            cost="ast",
+        ),
+        AnalyzerSpec(
+            name="overlap-independence",
+            module="implicitglobalgrid_tpu_torch.analysis.overlap",
+            func="run",
+            title="the pipelined group's mid pass waits for the group's input only, "
+            "never for its exchange (stream shim)",
+            paths=("implicitglobalgrid_tpu_torch/models/**",
+                   "implicitglobalgrid_tpu_torch/ops/**"),
+            cost="trace",
+        ),
+        AnalyzerSpec(
+            name="collective-budget",
+            module="implicitglobalgrid_tpu_torch.analysis.budget",
+            func="run",
+            title="each model's exchange holds its P2POps per dimension to the "
+            "committed budget (recording process group)",
+            paths=("implicitglobalgrid_tpu_torch/ops/**",
+                   "implicitglobalgrid_tpu_torch/models/**",
+                   "implicitglobalgrid_tpu_torch/parallel/**"),
+            cost="trace",
+        ),
+        AnalyzerSpec(
+            name="perm-validity",
+            module="implicitglobalgrid_tpu_torch.analysis.perms",
+            func="run",
+            title="the exchange's (source, target) pairs form a partial permutation "
+            "with matched receives on every simulated rank",
+            paths=("implicitglobalgrid_tpu_torch/ops/**",
+                   "implicitglobalgrid_tpu_torch/parallel/**"),
+            cost="trace",
+        ),
+        AnalyzerSpec(
+            name="grad-soundness",
+            module="implicitglobalgrid_tpu_torch.analysis.gradflow",
+            func="run",
+            title="no detached input on a differentiable entry's grad_fn graph, and "
+            "the backward sends cotangents back across blocks",
+            paths=("implicitglobalgrid_tpu_torch/ops/**",
+                   "implicitglobalgrid_tpu_torch/models/**"),
+            cost="trace",
+        ),
+        AnalyzerSpec(
+            name="ptxas-budget",
+            module="implicitglobalgrid_tpu_torch.analysis.ptxas",
+            func="run",
+            title="registers, spills and shared memory per kernel entry against the "
+            "committed ptxas baseline (needs nvcc)",
+            paths=("implicitglobalgrid_tpu_torch/csrc/**",
+                   "implicitglobalgrid_tpu_torch/ops/_kernels.py"),
+            cost="compile",
         ),
     )
 }
@@ -363,6 +432,10 @@ class Report:
             )
         for name, err in self.errors.items():
             lines.append(f"ERROR    analyzer {name} crashed: {err}")
+        for name in self.skipped:
+            why = self.stats.get(name, {}).get("skipped")
+            if why:
+                lines.append(f"SKIPPED  analyzer {name}: {why}")
         c = self.counts()
         summary = ", ".join(f"{c[s]} {s}" for s in SEVERITIES if c[s])
         lines.append(
@@ -410,6 +483,10 @@ def run(
         spec = REGISTRY[name]
         try:
             found = list(spec.load()(ctx))
+        except Skipped as e:
+            report.skipped.append(name)
+            report.stats[name] = {"skipped": str(e)}
+            continue
         except Exception as e:  # noqa: BLE001 — CLI surfaces, test raises
             if not keep_going:
                 raise

@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: ``nvcc`` output (incl. ``-Xptxas -v`` register/shared-memory report) per
-#: source built by this process, and its wall time in seconds.
+#: source built by this process, and its wall time in seconds.  The report
+#: is also kept beside the library (`build_log`).
 build_logs: dict[str, str] = {}
 build_seconds: dict[str, float] = {}
 
@@ -82,8 +83,19 @@ def build(name: str) -> Path:
             f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{build_logs[name]}"
         )
+    out.with_suffix(".log").write_text(build_logs[name])
     os.replace(tmp, out)
     return out
+
+
+def build_log(name: str) -> str | None:
+    """The ``nvcc`` report of the current library of ``csrc/<name>.cu``
+    (this process's build, or the one kept beside the library), or None
+    when it was not built here."""
+    if name in build_logs:
+        return build_logs[name]
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else None
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -35,6 +35,10 @@ and the halo exchange's:
 ``IGG_SKEW_WARN``         straggler threshold of the all-ranks skew probe
 ``IGG_METRICS_PORT``      live-plane scrape port (0 = ephemeral; unset = off)
 ``IGG_METRICS_HOST``      live-plane bind address (default loopback)
+``IGG_GATHER_BATCH``      blocks per chunk of the multi-process `gather`
+                          (clamped to >= 1, default 8; `ops.gather.
+                          _gather_batch_size`): the root's device transient
+                          is at most this many blocks
 ``IGG_BATCH``             default serving slot-pool capacity (>= 1)
 ``IGG_BATCH_ROUND_STEPS`` default steps per serving round (>= 1)
 ``IGG_SERVE_PORT``        front-door port (0 = ephemeral)
@@ -344,6 +348,14 @@ def metrics_host_env() -> str | None:
 
 
 # -- Batched serving knobs (read per loop construction) -----------------------
+
+
+def gather_batch_env() -> int | None:
+    """``IGG_GATHER_BATCH``: blocks per chunk of the chunked gather.
+
+    Clamped (not rejected) to >= 1 by the consumer, as in the JAX package.
+    """
+    return _int_env("IGG_GATHER_BATCH")
 
 
 def batch_env() -> int | None:

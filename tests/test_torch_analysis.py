@@ -4,7 +4,12 @@ against the JAX package's `analysis`.
 Held against JAX on the same inputs: `Finding` fingerprints and `Report`
 exit codes and JSON; the SARIF export (apart from the tool's name, against
 JAX's golden file too); the divergence detector's verdicts; knob-decl's
-findings on one fixture tree.  Port twins of JAX `tests/test_static_analysis.py`
+findings on one fixture tree; the gather-plan census and the collective
+budget table.  The six twins of the JAX passes (stream-aliasing,
+overlap-independence, collective-budget, perm-validity, grad-soundness,
+ptxas-budget) each catch a seeded positive and are clean on the tree;
+ptxas-budget's parser and comparison run on a recorded ``-Xptxas -v``
+report, and it reports itself skipped where nothing was built.  Port twins of JAX `tests/test_static_analysis.py`
 and `tests/test_tuning.py`: the rank-guard pass fires and stays quiet on
 torch fixtures; the real host-plan censuses are clean and a seeded
 rank-keyed tune lookup is caught; tune-cache-valid fires on seeded defects
@@ -229,7 +234,8 @@ def test_host_plan_censuses_clean_and_a_rank_keyed_tune_lookup_caught():
     ctx = tcore.Context()
     names = [c.name for p in TC.CENSUS_PROVIDERS for c in p(ctx)]
     assert any(n.startswith("host/tune_resolve") for n in names)
-    for prefix in ("host/supervisor_recovery", "host/fleet_plan", "host/integrity_plan"):
+    for prefix in ("host/supervisor_recovery", "host/fleet_plan", "host/integrity_plan",
+                   "host/gather_chunked"):
         assert any(n.startswith(prefix) for n in names), prefix
     assert TC.host_plan_findings(ctx) == []
     # the tuner whose ranks each trust their own disk: rank 1's local hit
@@ -360,8 +366,13 @@ def test_runner_folds_findings_through_the_baseline(tmp_path, monkeypatch):
 def test_full_suite_runs_clean():
     report = tanalysis.run()
     assert report.findings == [] and not report.errors, report.human()
-    assert report.ran == list(tcore.REGISTRY) == [
-        "collective-consistency", "knob-decl", "tune-cache-valid"]
+    assert list(tcore.REGISTRY) == [
+        "collective-consistency", "knob-decl", "tune-cache-valid", "stream-aliasing",
+        "overlap-independence", "collective-budget", "perm-validity", "grad-soundness",
+        "ptxas-budget"]
+    # without a kernel build (no nvcc) ptxas-budget skips itself, never "clean"
+    assert report.ran + report.skipped == list(tcore.REGISTRY)
+    assert report.skipped in ([], ["ptxas-budget"])
     assert report.stale_suppressions == [] and report.exit_code(strict=True) == 0
     for entry in tcore.Baseline.load(tanalysis.DEFAULT_BASELINE).suppressions.values():
         assert len(entry["justification"]) > 40  # a reason, not a mute
@@ -377,7 +388,8 @@ def test_cli_runs_clean_and_writes_sarif(tmp_path):
         [sys.executable, "-m", "implicitglobalgrid_tpu_torch.analysis", "--sarif", str(sarif)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "3 analyzer(s) ran — clean" in out.stdout
+    assert "8 analyzer(s) ran, 1 skipped — clean" in out.stdout
+    assert "SKIPPED  analyzer ptxas-budget: no nvcc build report" in out.stdout
     doc = json.loads(sarif.read_text())
     assert doc["runs"][0]["tool"]["driver"]["name"] == "igg-lint-torch"
     assert doc["runs"][0]["results"] == []
@@ -386,3 +398,283 @@ def test_cli_runs_clean_and_writes_sarif(tmp_path):
     assert main(["--list"]) == 0
     with pytest.raises(SystemExit):
         main(["no-such-analyzer"])
+
+
+# -- the twins of the JAX passes (leftover 12) -----------------------------------
+
+def test_gather_plan_census_equals_jax():
+    ctx = tcore.Context()
+    got = {c.name: c.sequences for c in TC.gather_plan_censuses(ctx)}
+    want = {c.name: c.sequences for c in JC.gather_plan_censuses(None)}
+    assert got == want and len(got) == 4
+    assert [f for c in TC.gather_plan_censuses(ctx) for f in TC.check_rank_consistency(c)] == []
+
+
+def _source(obj):
+    import inspect
+
+    return inspect.getsource(obj)
+
+
+_RECORD = "            for t in (*c, *b_out):\n                t.record_stream(mid)\n"
+_WAIT = "            mid.wait_stream(main)\n"
+_LAUNCH_STREAM = "stream = torch.cuda.current_stream(T.device).cuda_stream"
+
+
+@pytest.mark.parametrize("rel,edit,want", [
+    ("models/_fused.py", lambda s: s.replace(_RECORD, ""),
+     [("missing-record-stream", "mid:b_out"), ("missing-record-stream", "mid:c")]),
+    ("models/_fused.py", lambda s: s.replace(_WAIT, ""), [("unordered-stream-launch", "mid")]),
+    ("ops/halo.py", lambda s: s.replace("        for A in fields:\n            A.record_stream(comm)\n",
+                                        ""),
+     [("missing-record-stream", "comm:fields")]),
+    ("ops/fused_stencil.py", lambda s: s.replace(_LAUNCH_STREAM, "stream = side.cuda_stream"),
+     [("carry-in-off-stream", "carry_in")]),
+])
+def test_stream_aliasing_catches_seeded_fixtures(tmp_path, rel, edit, want):
+    from implicitglobalgrid_tpu_torch.analysis import aliasing
+
+    src = open(os.path.join(REPO, "implicitglobalgrid_tpu_torch", rel)).read()
+    bad = edit(src)
+    assert bad != src
+    clean = aliasing.run(_fixture_ctx(tmp_path / "a", {rel: src}))
+    found = aliasing.run(_fixture_ctx(tmp_path / "b", {rel: bad}))
+    assert clean == []
+    assert [(f.code, f.anchor) for f in found] == want
+    assert all(f.severity == "ERROR" and f.path.endswith(rel) for f in found)
+
+
+def test_stream_aliasing_clean_on_the_tree():
+    from implicitglobalgrid_tpu_torch.analysis import aliasing
+
+    assert aliasing.run(tcore.Context()) == []
+
+
+def _pipelined_variant(edit):
+    from implicitglobalgrid_tpu_torch.models import _fused
+
+    src = textwrap.dedent(_source(_fused.run_pipelined_group_schedule))
+    bad = edit(src)
+    assert bad != src
+    ns = dict(_fused.__dict__)
+    exec(compile(bad, "<fixture>", "exec"), ns)
+    return ns["run_pipelined_group_schedule"]
+
+
+_BEGIN = ("            pend = begin_slab_exchange(b_out, (0, 1), width=width, lead=lead, "
+          "coalesce=coalesce)\n")
+
+
+@pytest.mark.parametrize("edit,codes", [
+    # a stray wait of the mid stream after the exchange began
+    (lambda s: s.replace(_BEGIN + "            main.wait_stream(mid)\n",
+                         "            main.wait_stream(mid)\n").replace(
+        _RECORD, _RECORD + _BEGIN + _WAIT),
+     ["mid-waits-for-exchange", "mid-waits-for-ring"] * 2),
+    # the compute stream never joins the mid pass before the planes land
+    (lambda s: s.replace("            main.wait_stream(mid)\n", ""), ["finish-before-join"] * 2),
+    # the mid pass forks before the group's input is ready
+    (lambda s: s.replace(_WAIT, "", 1), ["mid-before-input"] * 2),
+])
+def test_overlap_independence_catches_seeded_schedules(edit, codes):
+    from implicitglobalgrid_tpu_torch.analysis import overlap
+
+    found = overlap.overlap_findings(_pipelined_variant(edit))
+    assert [f.code for f in found] == codes
+    assert [f.anchor.split("@")[1] for f in found] == [str(1 + i * 2 // len(codes))
+                                                     for i in range(len(codes))]
+
+
+def test_overlap_independence_clean_and_its_recording():
+    from implicitglobalgrid_tpu_torch.analysis import overlap
+    from implicitglobalgrid_tpu_torch.models import _fused
+
+    assert overlap.run(None) == []
+    rec = overlap.drive(_fused.run_pipelined_group_schedule, groups=1)
+    ops = [(label, stream) for label, stream, _ in rec.ops if not label.startswith("record")]
+    assert ops == [("input", "main"), ("ring", "main"), ("mid", "mid"), ("exchange", "main"),
+                   ("finish", "main")]
+    assert {label for label, stream, _ in rec.ops if label.startswith("record")} == {
+        "record f0", "record f1", "record ring0", "record ring1"}
+
+
+def test_collective_budget_table_is_jax_s_and_the_tree_is_clean():
+    from implicitglobalgrid_tpu.analysis import budget as jbudget
+    from implicitglobalgrid_tpu_torch.analysis import budget
+
+    assert budget.BUDGET_PAIRS == jbudget.BUDGET_PAIRS
+    assert budget.BATCHED_CENSUS_B == jbudget.BATCHED_CENSUS_B
+    assert budget.run(None) == []
+
+
+def test_collective_budget_catches_per_field_hops(monkeypatch):
+    from implicitglobalgrid_tpu_torch.analysis import budget
+    from implicitglobalgrid_tpu_torch.ops import halo
+
+    # the coalesced exchange forced to one message per field
+    monkeypatch.setattr(halo, "resolve_coalesce", lambda coalesce: False)
+    found = budget.run(None)
+    assert sorted({f.code for f in found}) == ["budget-exceeded"]
+    assert [f.symbol for f in found] == [f"{m}/dim{d}" for m in ("acoustic", "porous")
+                                         for d in range(3)]
+    assert [f.anchor for f in found] == ["16"] * 3 + ["20"] * 3
+
+
+def test_perm_validity_clean_and_a_duplicated_target_caught():
+    from implicitglobalgrid_tpu_torch.analysis import perms
+    from implicitglobalgrid_tpu_torch.parallel import topology
+
+    assert perms.run(None) == []
+    census = perms.message_census((3, 1, 1), (1, 0, 0))
+    assert sorted(census) == [(0, 0), (0, 1)]
+    assert sorted(r for kind, r, _ in census[(0, 0)] if kind == "send") == [0, 1, 2]
+
+    def duplicated(coords, dims, periods, disp=1):
+        table = topology.neighbors_table(coords, dims, periods, disp)
+        if coords[0] == 2:
+            table[0, 0] = 0  # rank 2's lower partner: rank 0, already rank 1's
+        return table
+
+    found = perms.perm_findings(perms.message_census((3, 1, 1), (0, 0, 0), table=duplicated),
+                                "fixture", 3)
+    assert [(f.code, f.anchor) for f in found] == [
+        ("malformed-permute", "dim0-tag0-perm"), ("unmatched-message", "dim0-tag0-match"),
+        ("unmatched-message", "dim0-tag1-match")]
+    assert all(f.severity == "CRITICAL" for f in found)
+
+
+def test_grad_soundness_clean_on_every_entry():
+    from implicitglobalgrid_tpu_torch.analysis import gradflow
+
+    names = [name for name, _, _ in gradflow.grad_entries()]
+    assert len(names) == 6 and gradflow.run(None) == []
+
+
+def test_grad_soundness_catches_a_detached_exchange_and_input(monkeypatch):
+    from implicitglobalgrid_tpu_torch.analysis import gradflow
+    from implicitglobalgrid_tpu_torch.ops import halo
+
+    entry = next(iter(gradflow.grad_entries()))
+
+    def detached(fields, width, lead, coalesce, col=None):
+        # the received planes land as constants: no _Exchange, no adjoint
+        halo._exchange_fields(fields, width, lead, coalesce, col)
+        return tuple(fields)
+
+    with monkeypatch.context() as m:
+        m.setattr(halo, "_exchange", detached)
+        (f,) = gradflow.grad_findings([entry])
+    assert (f.code, f.severity, f.symbol) == (
+        "cotangent-sink", "CRITICAL", "exchange/diffusion[coalesce=True]")
+
+    def cut(build):
+        def fixture():
+            fn, inputs = build()
+            return (lambda *x: fn(x[0].detach() * 1, *x[1:])), inputs
+        return fixture
+
+    name, grid, build = list(gradflow.grad_entries())[1]  # acoustic: P, Vx, Vy, Vz
+    found = gradflow.grad_findings([(name, grid, cut(build))])
+    assert [(f.code, f.anchor) for f in found] == [("detached-input", "input0")]
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__4c9cabed_11_fused_pt_cu_3000687615fused_pt_kernelIdLb1EEEvPKT_S3_S3_S3_PS1_S4_S4_S4_iiiiNS_2PtIS1_EEiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__4c9cabed_11_fused_pt_cu_3000687615fused_pt_kernelIdLb1EEEvPKT_S3_S3_S3_PS1_S4_S4_S4_iiiiNS_2PtIS1_EEiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compile time = 175.507 ms
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__4c9cabed_11_fused_pt_cu_3000687615fused_pt_kernelIdLb0EEEvPKT_S3_S3_S3_PS1_S4_S4_S4_iiiiNS_2PtIS1_EEiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__4c9cabed_11_fused_pt_cu_3000687615fused_pt_kernelIdLb0EEEvPKT_S3_S3_S3_PS1_S4_S4_S4_iiiiNS_2PtIS1_EEiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers
+ptxas info    : Compile time = 165.116 ms
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__4c9cabed_11_fused_pt_cu_3000687615fused_pt_kernelIfLb1EEEvPKT_S3_S3_S3_PS1_S4_S4_S4_iiiiNS_2PtIS1_EEiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__4c9cabed_11_fused_pt_cu_3000687615fused_pt_kernelIfLb1EEEvPKT_S3_S3_S3_PS1_S4_S4_S4_iiiiNS_2PtIS1_EEiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compile time = 187.409 ms
+"""
+"""The fused_pt.cu part of a chip_smoke.py phase 1 log (NVIDIA H100 80GB
+HBM3), three of its four entries."""
+
+_PT_D1 = "_ZN15fused_pt_kernelIdLb1EEEvPKT_S3_S3_S3_PS1_S4_S4_S4_iiiiNS_2PtIS1_EEiiii"
+
+
+def test_ptxas_parser_on_a_recorded_report():
+    from implicitglobalgrid_tpu_torch.analysis import ptxas
+
+    got = ptxas.parse_report(_PTXAS_LOG)
+    assert list(got) == [_PT_D1, _PT_D1.replace("IdLb1", "IdLb0"),
+                         _PT_D1.replace("IdLb1", "IfLb1")]
+    assert got[_PT_D1] == {"registers": 128, "spill_stores": 0, "spill_loads": 0,
+                           "stack_bytes": 0, "smem_bytes": 0}
+    assert got[_PT_D1.replace("IdLb1", "IdLb0")]["registers"] == 127
+    spilled = ptxas.parse_report(_PTXAS_LOG.replace(
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\nptxas info    : "
+        "Used 127 registers, used 1 barriers",
+        "16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\nptxas info    : "
+        "Used 255 registers, used 1 barriers, 1024 bytes smem"))
+    assert spilled[_PT_D1.replace("IdLb1", "IdLb0")] == {
+        "registers": 255, "spill_stores": 8, "spill_loads": 12, "stack_bytes": 16,
+        "smem_bytes": 1024}
+    # the committed baseline holds these entries with these numbers
+    base = ptxas.load_baseline()
+    assert {k: base["kernels"]["fused_pt"][k] for k in got} == got
+    assert sorted(base["kernels"]) == ptxas.sources() == [
+        "fused_diffusion", "fused_leapfrog", "fused_pt"]
+    assert all(len(base["justifications"][f"{s}::{e}"]) > 40
+               for s, es in base["kernels"].items() for e in es)
+
+
+@pytest.mark.parametrize("edit,want", [
+    (lambda c: c, []),
+    (lambda c: {**c, _PT_D1: {**c[_PT_D1], "registers": 136}}, [("registers-change", _PT_D1)]),
+    (lambda c: {**c, _PT_D1: {**c[_PT_D1], "spill_stores": 4}}, [("spill-change", _PT_D1)]),
+    (lambda c: {k: v for k, v in c.items() if k != _PT_D1}, [("entry-lost", _PT_D1)]),
+    (lambda c: {**c, "_ZN15new_kernel": dict(c[_PT_D1])}, [("entry-unbaselined",
+                                                            "_ZN15new_kernel")]),
+])
+def test_ptxas_comparison_is_exact(edit, want):
+    from implicitglobalgrid_tpu_torch.analysis import ptxas
+
+    base = {"version": 1, "kernels": {"fused_pt": ptxas.parse_report(_PTXAS_LOG)}}
+    found = ptxas.compare({"fused_pt": edit(ptxas.parse_report(_PTXAS_LOG))}, base)
+    assert [(f.code, f.symbol.split("::")[1]) for f in found] == want
+    assert all(f.severity == "ERROR" for f in found)
+
+
+def test_ptxas_budget_skips_without_a_build_and_refresh_keeps_the_contract(
+        tmp_path, monkeypatch, capsys):
+    from implicitglobalgrid_tpu_torch.analysis import ptxas
+    from implicitglobalgrid_tpu_torch.analysis.__main__ import main
+    from implicitglobalgrid_tpu_torch.ops import _kernels
+
+    monkeypatch.setattr(_kernels, "build_log", lambda name: None)
+    report = tcore.run(["ptxas-budget"], baseline=None)
+    assert report.ran == [] and report.skipped == ["ptxas-budget"] and report.exit_code() == 0
+    assert "no nvcc build report" in report.stats["ptxas-budget"]["skipped"]
+    assert "SKIPPED  analyzer ptxas-budget" in report.human()
+    # refresh: built reports stand in for nvcc's
+    monkeypatch.setattr(_kernels, "build", lambda name: None)
+    monkeypatch.setattr(_kernels, "build_log", lambda name: _PTXAS_LOG.replace(
+        "fused_pt", name) if name == "fused_pt" else "")
+    out = tmp_path / "ptxas_baseline.json"
+    assert main(["refresh", "--out", str(out)]) == 1  # new entries need a justification
+    assert not out.exists()
+    assert main(["refresh", "--dry-run", "--out", str(out)]) == 0
+    assert main(["refresh", "--out", str(out), "--justify-all", "fixture: first pin"]) == 0
+    doc = json.loads(out.read_text())
+    assert doc["kernels"]["fused_pt"] == ptxas.parse_report(_PTXAS_LOG)
+    assert set(doc["justifications"].values()) == {"fixture: first pin"}
+    assert main(["refresh", "--out", str(out)]) == 0  # unchanged: nothing to justify
+    assert "nothing to refresh" in capsys.readouterr().out
+    key = f"fused_pt::{_PT_D1}"
+    monkeypatch.setattr(_kernels, "build_log", lambda name: _PTXAS_LOG.replace(
+        "Used 128 registers", "Used 130 registers", 1) if name == "fused_pt" else "")
+    assert main(["refresh", "--out", str(out)]) == 1
+    assert main(["refresh", "--out", str(out), "--justify", f"{key}=fixture: +2"]) == 0
+    doc = json.loads(out.read_text())
+    assert doc["kernels"]["fused_pt"][_PT_D1]["registers"] == 130
+    assert doc["justifications"][key] == "fixture: +2"
