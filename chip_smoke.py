@@ -267,6 +267,23 @@ and then prints no result line):
    ``analysis/ptxas_baseline.json``; each kernel entry's registers,
    spills, stack and static shared memory are printed.  (d) ``python -m
    implicitglobalgrid_tpu_torch.analysis`` runs all nine analyzers clean.
+17. The operator tools (``implicitglobalgrid_tpu_torch.scripts``), the
+   soak's single-rank drills on the card.  (a) ``soak baseline init_flake
+   halo_corrupt worker_crash --device cuda --nx 256 --fused-k 4 --steps
+   16``: diffusion ``run()`` at the main path's 256^3 float32 block in
+   kernel groups of 4, every recovered field's sha256 equal to the
+   baseline's, every child's ``fused_diffusion_steps`` launches > 0 (the
+   crashed child reports on its way out), each scenario's wall seconds and
+   ``worker_crash``'s crash-to-done seconds printed.  (b) Side by side with
+   (a): ``soak serving fleet --device cuda --nx 32 --fused-k 4 --steps 8``:
+   the porous serving pool (``fused_pt_iterations`` batched, launches > 0)
+   and the fleet drill, one rank per pool on device 0 (pools' and oracle's
+   ``fused_diffusion_steps`` launches > 0).  (c) ``igg_trace`` merge +
+   validate of each of (a)'s span dumps (exit 0), the ``igg_top`` view
+   over (b)'s two pool doors (two rows), and a 2-rank drill asked onto one
+   card refused with its message.  The five 2-rank drills wait for two or
+   more cards.  This process launches nothing in the phase (its counts
+   stay 0): the children count their own launches.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -816,8 +833,10 @@ def main() -> None:
     phase15(torch, igg, reset_counts, counts, card, tune_out=tune_out)
     PHASE[0] = "16"
     phase16(torch, igg, reset_counts, counts, card)
+    PHASE[0] = "17"
+    phase17(torch, reset_counts, counts, card)
 
-    print(f"chip_smoke: phases 1-16 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(f"chip_smoke: phases 1-17 passed in {time.perf_counter() - t_start!r} s {card}")
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2896,6 +2915,145 @@ def phase16(torch, igg, reset_counts, counts, card, n=256, ngather=512, device="
         fail(f"16d: the analysis suite is not clean with every analyzer:\n{lint.stdout}\n"
              f"{lint.stderr}")
     print(f"phase 16: {time.perf_counter() - t_phase!r} s {card}")
+
+
+#: phase 17's soak runs: (part, soak arguments)
+SOAK_RUNS = (
+    ("17a", ["baseline", "init_flake", "halo_corrupt", "worker_crash", "--nx", "256",
+             "--fused-k", "4", "--steps", "16"]),
+    ("17b", ["serving", "fleet", "--nx", "32", "--fused-k", "4", "--steps", "8"]),
+)
+
+
+def phase17(torch, reset_counts, counts, card, device="cuda", sizes=None) -> None:
+    """Phase 17: the operator tools on the card (see the module docstring).
+    ``device`` and ``sizes`` (``{part: [--nx, --steps]}``) exist for a
+    rehearsal on the CPU."""
+    import io
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="igg_phase17_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    tool = [sys.executable, "-m", "implicitglobalgrid_tpu_torch.scripts."]
+    cuda = device == "cuda"
+    refused = None
+    print("phase 17: the five 2-rank drills (elastic_failover, live_plane, frontdoor, chaos, "
+          "sdc) wait for two or more cards: NCCL puts no two ranks on one device (ROADMAP "
+          "leftover 3); on the CPU they pass in tier-1")
+    try:
+        # 17a and 17b run side by side: two soak processes, each starting its
+        # children one after another (most of a child's time is its start);
+        # beside them, a 2-rank drill asked onto one card, which must raise
+        # (no quiet CPU fallback; 17c reads it)
+        reset_counts()
+        if cuda and torch.cuda.device_count() < 2:
+            refused = subprocess.Popen(
+                tool[:-1] + [tool[-1] + "soak", "elastic_failover", "--device", "cuda",
+                             "--workdir", str(work / "refused")],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        runs = {}
+        for part, argv in SOAK_RUNS:
+            if sizes is not None:
+                argv = argv[:argv.index("--nx")] + ["--nx", str(sizes[part][0]), "--fused-k",
+                                                     "2", "--steps", str(sizes[part][1])]
+            log = open(work / f"{part}.log", "w+")
+            proc = subprocess.Popen(
+                tool[:-1] + [tool[-1] + "soak", *argv, "--device", device, "--workdir",
+                             str(work / part), "--timeout", "300"],
+                env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+            runs[part] = (argv, proc, log, time.perf_counter())
+        summaries = {}
+        for part, (argv, proc, log, t0) in runs.items():
+            try:
+                proc.wait(timeout=900)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            secs = time.perf_counter() - t0
+            log.seek(0)
+            out = log.read()
+            log.close()
+            for line in out.splitlines():
+                if not line.startswith("[W"):  # c10d's hostname warnings
+                    print(f"phase {part}: {line}")
+            # the soak's children launch the kernels; this process launches none
+            if proc.returncode != 0 or any(counts().values()):
+                fail(f"{part}: soak exited {proc.returncode} (this process's launches "
+                     f"{counts()}):\n{out[-8000:]}")
+            workdir = work / part
+            summary = json.loads((workdir / "soak_summary.json").read_text())["scenarios"]
+            summaries[part] = summary
+            for name, rec in summary.items():
+                launches = [r and {k: v for k, v in r.items() if v}
+                            for r in rec.get("launches", [])]
+                extra = "".join(f", {key} {rec[key]!r}" for key in (
+                    "crash_step", "crash_to_done_s", "rounds", "kill_to_all_done_s", "leg1_s",
+                    "canary_legs_s") if key in rec)
+                print(f"phase {part}: {name}: {'PASS' if rec['ok'] else 'FAIL'} in "
+                      f"{rec['seconds']!r} s; children's kernel launches {launches}{extra} {card}")
+                if not rec["ok"]:
+                    fail(f"{part}: {name} failed")
+            print(f"phase {part}: soak {' '.join(argv)} --device {device}: {secs!r} s, side "
+                  f"by side with the other part {card}")
+
+        # 17a: every recovered field is the baseline's, and every child ran the kernel
+        a = summaries["17a"]
+        want = a["baseline"]["sha256"]
+        for name in ("init_flake", "halo_corrupt", "worker_crash"):
+            if a[name]["sha256"] != want:
+                fail(f"17a: {name}'s field sha256 {a[name]['sha256']} != the baseline's {want}")
+        for part, summary in summaries.items():
+            for name, rec in summary.items():
+                k = "fused_pt_iterations" if name == "serving" else "fused_diffusion_steps"
+                got = [r[k] for r in rec["launches"]]
+                if cuda and (not got or min(got) <= 0):
+                    fail(f"{part}: {name}'s children launched {k} {got} times")
+        print(f"phase 17a: init_flake, halo_corrupt, worker_crash: sha256 of each saved field "
+              f"== the baseline's {want[:16]}...; worker_crash crash (step "
+              f"{a['worker_crash']['crash_step']}) to done {a['worker_crash']['crash_to_done_s']!r}"
+              f" s {card}")
+
+        # 17c: the trace CLI over 17a's span dumps, the cluster view over 17b's pools
+        from implicitglobalgrid_tpu_torch.scripts import igg_trace
+
+        t0 = time.perf_counter()
+        for name in ("baseline", "init_flake", "halo_corrupt", "worker_crash"):
+            merged = work / f"merged_{name}.json"
+            rcs = []
+            for cmd in (["merge", str(work / "17a" / f"telemetry_{name}"), "-o", str(merged)],
+                        ["validate", str(merged)]):
+                said = io.StringIO()
+                with contextlib.redirect_stderr(said):
+                    rcs.append(igg_trace.main(cmd))
+                if rcs[-1] != 0:
+                    fail(f"17c: igg_trace {cmd[0]} of {name}'s dump exited {rcs[-1]}:\n"
+                         f"{said.getvalue()}")
+            doc = json.loads(merged.read_text())
+            spans = sum(1 for e in doc["traceEvents"] if e["ph"] == "X")
+            print(f"phase 17c: igg_trace merge + validate of 17a {name}'s span dump: exit "
+                  f"codes {rcs}, {spans} spans")
+        view = summaries["17b"]["fleet"].get("view", "")
+        rows = [line for line in view.splitlines()[2:] if line.strip()]
+        print(f"phase 17c: igg_top view over 17b's two pool doors ({len(rows)} rows):")
+        for line in view.splitlines():
+            print(f"phase 17c:   {line}")
+        if len(rows) != 2:
+            fail(f"17c: the igg_top view has {len(rows)} rows, not one per pool")
+        if refused is not None:
+            out, err = refused.communicate(timeout=120)
+            last = (err.strip().splitlines() or [""])[-1]
+            print(f"phase 17c: soak elastic_failover --device cuda on one card: exit "
+                  f"{refused.returncode}: {last}")
+            if refused.returncode == 0 or "two CUDA cards" not in last:
+                fail(f"17c: the 2-rank drill on one card did not raise: {out}")
+        print(f"phase 17c: {time.perf_counter() - t0!r} s {card}")
+    finally:
+        if refused is not None and refused.poll() is None:
+            refused.kill()
+            refused.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 17: {time.perf_counter() - t_phase!r} s {card}")
 
 
 if __name__ == "__main__":

@@ -67,24 +67,28 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
+    nvcc = nvcc_path()  # raises before anything is written to the build dir
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build to a private name, then rename: concurrent ranks never load a
-    # half-written library.
+    # half-written library.  A failed build leaves no temporary file.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{build_logs[name]}"
-        )
-    out.with_suffix(".log").write_text(build_logs[name])
-    os.replace(tmp, out)
+    try:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds[name] = time.perf_counter() - t0
+        build_logs[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{build_logs[name]}"
+            )
+        out.with_suffix(".log").write_text(build_logs[name])
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return out
 
 
