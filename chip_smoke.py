@@ -266,7 +266,7 @@ and then prints no result line):
    phase 1's builds runs (not skipped) and is clean against
    ``analysis/ptxas_baseline.json``; each kernel entry's registers,
    spills, stack and static shared memory are printed.  (d) ``python -m
-   implicitglobalgrid_tpu_torch.analysis`` runs all nine analyzers clean.
+   implicitglobalgrid_tpu_torch.analysis`` runs every analyzer clean.
 17. The operator tools (``implicitglobalgrid_tpu_torch.scripts``), the
    soak's single-rank drills on the card.  (a) ``soak baseline init_flake
    halo_corrupt worker_crash --device cuda --nx 256 --fused-k 4 --steps
@@ -284,6 +284,39 @@ and then prints no result line):
    card refused with its message.  The five 2-rank drills wait for two or
    more cards.  This process launches nothing in the phase (its counts
    stay 0): the children count their own launches.
+18. The bench harness (``implicitglobalgrid_tpu_torch.benchmarks``), the
+   reconcile join and the padded-face exchange.  (a) ``benchmarks.run`` at
+   phases 3, 4, 5 and 6's exact configs (diffusion 256^3 periodic x, y, z
+   overlap 8 ``fused_k=4``, 16 steps a call; 512^3 non-periodic, 8 steps;
+   acoustic periodic z overlap 12 ``fused_k=6``, 24 steps; porous npt=12
+   periodic z overlap 14 ``fused_k=6``, 2 steps), 20 timed calls each: the
+   record's path is ``cuda-fused``, the kernel's launch count rose, and its
+   ms per step is within 5% of the same run's phase reading.  (b)
+   ``benchmarks.bench`` with no record file (``IGG_TUNE_CACHE`` a fresh
+   directory): one JSON line; every extra carries numbers or is one of the
+   twin's named skips, none holds an error; the checkout's top level is
+   unchanged; the headline T_eff, ``vs_baseline`` and each fused extra's
+   ms per step are printed (``--bench-out DIR`` also writes the record
+   there).  (c) The record's ``efficiency`` join has ``achieved_fraction``
+   and ``modeled_actual_gbs`` for the three models, printed beside the
+   card's 3.35 TB/s (a rate above it is flagged: the byte model counts
+   re-reads that L2 serves), and the ``cost-model`` analyzer is clean
+   against ``analysis/cost_baseline.json``.  (d)
+   ``ops.halo.update_halo_padded_faces`` on acoustic 256^3 float32 fields
+   (random, periodic in x, y and z, width 1): with every dimension, bit
+   for bit as ``update_halo`` of the unpadded fields; with ``dims=(0, 1)``,
+   as ``update_halo`` on a grid periodic in x and y only.  Each part's time
+   is printed.  18a runs right after phase 6, in the process state that
+   phases 3-6 measured in; 18b-d at the end.  (e) The host side of one
+   diffusion chunk call at phase 3's config (`host_probe`: the launches
+   alone, timed on the host's clock with the card idle before each call,
+   beside the call's CUDA-event time, the live threads, the objects the
+   collector tracks, the allocator's segments, the telemetry metrics and
+   the span ring), read right after 18a and again at the end (beside
+   18a's diffusion 256^3 harness run, repeated there): as is,
+   with ``IGG_TELEMETRY=0``, after ``gc.collect()`` and
+   ``torch.cuda.empty_cache()``, and after resetting telemetry and tracing
+   as well.  It prints; it fails on nothing.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -305,6 +338,7 @@ import json
 import os
 import shutil
 import subprocess
+import statistics
 import sys
 import tempfile
 import time
@@ -431,7 +465,10 @@ def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     parser.add_argument("--tune-out", default=None, metavar="DIR",
                         help="also write phase 15a's winners' cache entries to DIR")
-    tune_out = parser.parse_args().tune_out
+    parser.add_argument("--bench-out", default=None, metavar="DIR",
+                        help="also write phase 18b's bench record to DIR")
+    args = parser.parse_args()
+    tune_out = args.tune_out
     t_start = time.perf_counter()
     if not (ROOT / "implicitglobalgrid_tpu_torch" / "__init__.py").is_file():
         fail(f"{ROOT} holds no implicitglobalgrid_tpu_torch package: run from a checkout")
@@ -810,6 +847,10 @@ def main() -> None:
     porous_run(12, dict(periodz=1, overlapx=14, overlapy=14, overlapz=14),
                "256^3 f32 npt=12 periodic z overlap 14", main=True)
     porous_run(10, {}, "256^3 f32 npt=10 non-periodic", main=False)
+    # phase 18a runs here, in the process state phases 3-6 measured in
+    harness = phase18a(torch, reset_counts, counts, card,
+                       {**main_step_ms, "diffusion3d_512": step4_ms})
+    early = host_probe(torch, "right after phase 18a", card)
 
     phase7(torch, igg, modules, reset_counts, counts, card)
     phase8(torch, igg, modules, reset_counts, counts, card, records)
@@ -835,8 +876,11 @@ def main() -> None:
     phase16(torch, igg, reset_counts, counts, card)
     PHASE[0] = "17"
     phase17(torch, reset_counts, counts, card)
+    PHASE[0] = "18"
+    phase18(torch, igg, card, harness, bench_out=args.bench_out)
+    phase18e(torch, card, early, main_step_ms["diffusion3d"])
 
-    print(f"chip_smoke: phases 1-17 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(f"chip_smoke: phases 1-18 passed in {time.perf_counter() - t_start!r} s {card}")
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3054,6 +3098,257 @@ def phase17(torch, reset_counts, counts, card, device="cuda", sizes=None) -> Non
             refused.wait()
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 17: {time.perf_counter() - t_phase!r} s {card}")
+
+
+#: Phase 18a's harness runs at phases 3, 4, 5 and 6's configs: (key of the
+#: phase's ms per step, `benchmarks.run` function, its kwargs, the kernel).
+HARNESS_RUNS = (
+    ("diffusion3d", "bench_diffusion",
+     dict(n=256, chunk=16, fused_k=4, overlap=8, period="xyz"), "fused_diffusion_steps"),
+    ("acoustic3d", "bench_acoustic",
+     dict(n=256, chunk=24, fused_k=6, overlap=12, period="z"), "fused_leapfrog_steps"),
+    ("porous_convection3d", "bench_porous",
+     dict(n=256, chunk=2, npt=12, fused_k=6, overlap=14, period="z"), "fused_pt_iterations"),
+    ("diffusion3d_512", "bench_diffusion", dict(n=512, chunk=8, fused_k=4),
+     "fused_diffusion_steps"),
+)
+
+
+def phase18a(torch, reset_counts, counts, card, phase_ms) -> list:
+    """Phase 18a, run right after phase 6: the harness at phases 3-6's
+    configs, against their ms per step (``phase_ms``, by `HARNESS_RUNS`
+    key) taken in the same process state; returns its lines, which phase
+    18 prints again."""
+    from implicitglobalgrid_tpu_torch.benchmarks import run
+
+    t0 = time.perf_counter()
+    lines = []
+    for key, func, kw, kernel in HARNESS_RUNS:
+        reset_counts()
+        rec = getattr(run, func)(reps=20, dtype="float32", emit=False, device="cuda", **kw)
+        c = counts()
+        ratio = rec["t_it_ms"] / phase_ms[key]
+        lines.append(
+            f"phase 18a: benchmarks.run {func}({', '.join(f'{k}={v}' for k, v in kw.items())}):"
+            f" {rec['metric']} {rec['t_it_ms']!r} ms/step (spread {rec['spread']}), T_eff "
+            f"{rec['value']!r} GB/s, path {rec['path']}, launches {c}; the phase's reading "
+            f"{phase_ms[key]!r} ms/step, ratio {ratio!r} {card}")
+        print(lines[-1])
+        if rec["path"] != "cuda-fused" or c[kernel] <= 0:
+            fail(f"18a: {func} did not run {kernel} on the card: path {rec['path']}, {c}")
+        if not 0.95 <= ratio <= 1.05:
+            fail(f"18a: {rec['metric']} {rec['t_it_ms']!r} ms/step is not within 5% of the "
+                 f"phase's {phase_ms[key]!r}")
+    lines.append(f"phase 18a: {time.perf_counter() - t0!r} s {card}")
+    print(lines[-1])
+    return lines
+
+
+def phase18(torch, igg, card, harness=(), bench_out=None) -> None:
+    """Phase 18b-d: the bench twin, the reconcile join and the padded-face
+    exchange on the card (see the module docstring); first 18a's lines
+    (``harness``: it ran after phase 6) again."""
+    import io
+
+    from implicitglobalgrid_tpu_torch.analysis import core as acore
+    from implicitglobalgrid_tpu_torch.benchmarks import bench
+    from implicitglobalgrid_tpu_torch.models import acoustic3d
+    from implicitglobalgrid_tpu_torch.ops import fused_leapfrog as fl
+    from implicitglobalgrid_tpu_torch.ops.halo import update_halo_padded_faces
+
+    t_phase = time.perf_counter()
+    for line in harness:
+        print(f"{line} (after phase 6)")
+
+    # -- 18b: the bench twin, no record file -------------------------------------
+    t0 = time.perf_counter()
+    before = sorted(os.listdir(ROOT))
+    work = Path(tempfile.mkdtemp(prefix="igg_phase18_"))
+    saved = os.environ.get("IGG_TUNE_CACHE")
+    os.environ["IGG_TUNE_CACHE"] = str(work / "tune")
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            bench.main(out=None, device="cuda")
+    finally:
+        if saved is None:
+            os.environ.pop("IGG_TUNE_CACHE", None)
+        else:
+            os.environ["IGG_TUNE_CACHE"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+    lines = [line for line in out.getvalue().splitlines() if line.strip()]
+    if len(lines) != 1:
+        fail(f"18b: the bench twin printed {len(lines)} lines, not one")
+    record = json.loads(lines[0])
+    if bench_out:
+        Path(bench_out).mkdir(parents=True, exist_ok=True)
+        (Path(bench_out) / "bench_record.json").write_text(json.dumps(record, indent=1))
+    after = sorted(os.listdir(ROOT))
+    if after != before:
+        fail(f"18b: the bench twin changed the checkout: {sorted(set(after) ^ set(before))}")
+    extras = record["extras"]
+    for name, extra in extras.items():
+        if not isinstance(extra, dict):
+            continue
+        if "error" in extra or any(isinstance(v, dict) and "error" in v for v in extra.values()):
+            fail(f"18b: extra {name} failed: {json.dumps(extra)[:2000]}")
+        if "skipped" in extra and extra["skipped"] != bench.SKIPPED.get(name):
+            fail(f"18b: extra {name} skipped for a reason the twin does not name: {extra}")
+    skipped = sorted(k for k, v in extras.items() if isinstance(v, dict) and "skipped" in v)
+    print(f"phase 18b: {record['metric']}: T_eff {record['value']!r} GB/s, vs_baseline "
+          f"{record['vs_baseline']!r} (154 GB/s), headline path {extras['headline_path']}; "
+          f"{len(extras)} extras, skipped {skipped} {card}")
+    for name, extra in extras.items():
+        fused = [(name, extra)] if "pallas_fused" in name else (
+            [(f"{name}.{k}", v) for k, v in extra.items()] if name.endswith("pipelined_ab")
+            else [])
+        for label, r in fused:
+            print(f"phase 18b: {label}: {r['t_it_ms']!r} ms/step, T_eff {r['teff']!r} GB/s, "
+                  f"path {r['path']}, pipelined {r.get('pipelined')} {card}")
+    print(f"phase 18b: no record written, the checkout unchanged; {time.perf_counter() - t0!r} s "
+          f"{card}")
+
+    # -- 18c: the reconcile join, and the cost model -------------------------------
+    t0 = time.perf_counter()
+    eff = extras["efficiency"]["models"]
+    card_gbs = HBM_BYTES_PER_S / 1e9
+    for model in ("diffusion", "acoustic", "porous"):
+        rec = eff[model]
+        if rec.get("achieved_fraction") is None or rec.get("modeled_actual_gbs") is None:
+            fail(f"18c: the efficiency join lacks {model}: {rec}")
+        flag = ("ABOVE the card's rate: the byte model counts re-reads that L2 serves"
+                if rec["modeled_actual_gbs"] > card_gbs else "below the card's rate")
+        print(f"phase 18c: {model}: achieved_fraction {rec['achieved_fraction']!r}, measured "
+              f"fused T_eff {rec['measured_teff_gbs']!r} GB/s, modeled_actual_gbs "
+              f"{rec['modeled_actual_gbs']!r} ({flag}, {card_gbs!r} GB/s) {card}")
+    report = acore.run(["cost-model"], baseline=None)
+    if report.ran != ["cost-model"] or report.findings or report.errors:
+        fail(f"18c: cost-model is not clean:\n{report.human()}")
+    print(f"phase 18c: cost-model: {report.human().splitlines()[-1]}; "
+          f"{time.perf_counter() - t0!r} s {card}")
+
+    # -- 18d: update_halo_padded_faces, bit for bit ----------------------------
+    t0 = time.perf_counter()
+    n = 256
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    periods = dict(periodx=1, periody=1, periodz=1)
+    for dims, ref_periods in ((None, periods), ((0, 1), dict(periodx=1, periody=1))):
+        state, _ = acoustic3d.setup(n, n, n, dtype=torch.float32, quiet=True, **periods)
+        fields = [torch.randn(A.shape, generator=gen, device=A.device) for A in state]
+        C = fields[0].clone()
+        padded = fl.pad_faces(*fields[1:])
+        update_halo_padded_faces(C, *padded, width=1, dims=dims)
+        got = (C, *fl.unpad_faces(*padded))
+        igg.finalize_global_grid()
+        # the reference: unpad -> update_halo -> pad, on a grid whose halo
+        # activity is ``dims``' (x and y only for dims=(0, 1))
+        igg.init_global_grid(n, n, n, quiet=True, **ref_periods)
+        want = [A.clone() for A in fields]
+        igg.update_halo(*want)
+        igg.finalize_global_grid()
+        torch.cuda.synchronize()
+        for name, g, w in zip(("P", "Vx", "Vy", "Vz"), got, want):
+            if not torch.equal(g, w):
+                fail(f"18d: update_halo_padded_faces(dims={dims}) {name} differs from unpad -> "
+                     f"update_halo -> pad: max {float((g - w).abs().max())!r}")
+        print(f"phase 18d: update_halo_padded_faces acoustic {n}^3 f32 periodic x, y, z, "
+              f"width=1, dims={dims}: bit for bit with unpad -> update_halo -> pad "
+              f"({'x, y, z' if dims is None else 'a grid periodic in x and y'})")
+        del state, fields, C, padded, got, want
+    print(f"phase 18d: {time.perf_counter() - t0!r} s {card}")
+    print(f"phase 18: {time.perf_counter() - t_phase!r} s {card}")
+
+
+def host_probe(torch, label: str, card: str, reps: int = 30) -> dict:
+    """Phase 18e's reading: the host side of one diffusion chunk call at
+    phase 3's config (256^3 float32, periodic x, y, z, overlap 8, 16 steps
+    ``fused_k=4``).  Each call is timed on the host's clock from an idle
+    card (synchronised before, not after), so the reading is the launches
+    alone; beside it the call's CUDA-event time and what might grow with
+    the process: live threads, objects the collector tracks, the caching
+    allocator's segments, telemetry metrics and spans in the ring."""
+    import gc
+    import threading
+
+    from implicitglobalgrid_tpu_torch import finalize_global_grid, telemetry_snapshot
+    from implicitglobalgrid_tpu_torch.models import diffusion3d
+    from implicitglobalgrid_tpu_torch.utils import tracing
+
+    n, nsteps = 256, 16
+    state, params = diffusion3d.setup(
+        n, n, n, periodx=1, periody=1, periodz=1, overlapx=8, overlapy=8, overlapz=8,
+        dtype=torch.float32, quiet=True)
+    fused = diffusion3d.make_multi_step(params, nsteps, fused_k=4)
+    state = fused(*fused(*state))
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = fused(*state)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    device_ms = cuda_ms(torch, lambda: fused(*state), reps=reps, warmup=1)
+    finalize_global_grid()
+    del state
+    snap = telemetry_snapshot()
+    out = {
+        "host_ms": statistics.median(host), "host_min_ms": min(host),
+        "host_max_ms": max(host), "device_ms": device_ms,
+        "threads": sorted(t.name for t in threading.enumerate()),
+        "gc_objects": len(gc.get_objects()),
+        "segments": torch.cuda.memory_stats().get("segment.all.current", 0),
+        "metrics": sum(len(snap[k]) for k in ("counters", "gauges", "histograms")),
+        "spans": len(tracing.span_records()),
+    }
+    print(f"phase 18e: host probe {label}: host {out['host_ms']!r} ms per 16-step call "
+          f"(min {out['host_min_ms']!r}, max {out['host_max_ms']!r}, {reps} calls from an idle "
+          f"card), device {device_ms!r} ms per call ({device_ms / nsteps!r} ms/step); "
+          f"{len(out['threads'])} threads {out['threads']}, {out['gc_objects']} gc objects, "
+          f"{out['segments']} allocator segments, {out['metrics']} telemetry metrics, "
+          f"{out['spans']} spans {card}")
+    return out
+
+
+def phase18e(torch, card, early: dict, phase3_ms: float) -> None:
+    """Phase 18e at the end: 18a's diffusion 256^3 harness run again,
+    beside phase 3's ms per step (``phase3_ms``); the host probe as the
+    process stands, then with telemetry off, after a collection and an
+    emptied allocator cache, and after resetting telemetry and tracing as
+    well (see the module docstring); each beside the reading right after
+    18a."""
+    import gc
+
+    from implicitglobalgrid_tpu_torch.benchmarks import run
+    from implicitglobalgrid_tpu_torch.utils import telemetry, tracing
+
+    t0 = time.perf_counter()
+    _, func, kw, _ = HARNESS_RUNS[0]
+    rec = getattr(run, func)(reps=20, dtype="float32", emit=False, device="cuda", **kw)
+    print(f"phase 18e: at the end, benchmarks.run {func} at phase 3's config: {rec['t_it_ms']!r} "
+          f"ms/step (spread {rec['spread']}); phase 3's {phase3_ms!r}, ratio "
+          f"{rec['t_it_ms'] / phase3_ms!r} {card}")
+    late = {"at the end": host_probe(torch, "at the end", card)}
+    saved = os.environ.get("IGG_TELEMETRY")
+    os.environ["IGG_TELEMETRY"] = "0"
+    try:
+        late["IGG_TELEMETRY=0"] = host_probe(torch, "at the end, IGG_TELEMETRY=0", card)
+    finally:
+        if saved is None:
+            os.environ.pop("IGG_TELEMETRY", None)
+        else:
+            os.environ["IGG_TELEMETRY"] = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    late["gc + empty_cache"] = host_probe(
+        torch, "at the end, after gc.collect() and torch.cuda.empty_cache()", card)
+    telemetry.reset()
+    tracing.reset()
+    late["+ telemetry/tracing reset"] = host_probe(
+        torch, "at the end, after gc, empty_cache and a telemetry and tracing reset", card)
+    for label, r in late.items():
+        print(f"phase 18e: {label}: host {r['host_ms'] / early['host_ms']!r}x, device "
+              f"{r['device_ms'] / early['device_ms']!r}x the reading right after 18a {card}")
+    print(f"phase 18e: {time.perf_counter() - t0!r} s {card}")
 
 
 if __name__ == "__main__":

@@ -12,7 +12,10 @@ Tasks:
 
 * ``"halo"``: `update_halo(*fields, width=...)` on the named fields; with
   ``"split": true`` also `begin_slab_exchange` + `finish_slab_exchange` on
-  copies of them, saved as ``<name>_split``.
+  copies of them, saved as ``<name>_split``; with ``"padded": true`` (a
+  cell field and its three face fields, in that order) also
+  `ops.halo.update_halo_padded_faces` on padded copies, saved unpadded as
+  ``<name>_padded``.
 * ``"multi_step"``, ``"acoustic"``, ``"porous"``: ``make_multi_step(params,
   nsteps, **step)`` of ``diffusion3d`` on ``(T, Cp)``, of ``acoustic3d`` on
   ``(P, Vx, Vy, Vz)``, of ``porous_convection3d`` on ``(T, Pf, qDx, qDy,
@@ -91,6 +94,9 @@ Tasks:
   file stem, function, kwargs]`` (``dtype`` by name); a tensor result is
   saved as ``<key>``, a list of frames as ``<key><i>`` with their count as
   ``<key>_n``.
+
+* ``"bench"``: one function of `benchmarks.run` (``func``) with
+  ``kwargs``, on the CPU; its record is saved as ``record`` (JSON bytes).
 
 * ``"serving"``: the serving front door over a diffusion pool
   (`serving.FrontDoor`).  `serving.frontdoor.broadcast_control` of rank
@@ -291,6 +297,8 @@ def _run(task: dict) -> dict:
         return _run_gather(task, inputs)
     if task["kind"] == "examples":
         return _run_examples(task)
+    if task["kind"] == "bench":
+        return _run_bench(task)
     init_global_grid(*task["nxyz"], device="cpu", quiet=True, **task.get("grid", {}))
     try:
         if task["kind"] == "halo":
@@ -305,6 +313,14 @@ def _run(task: dict) -> dict:
                 pend = begin_slab_exchange(copies, range(3), width=width)
                 finish_slab_exchange(copies, pend)
                 out = {f"{name}_split": A.numpy() for name, A in zip(task["fields"], copies)}
+            if task.get("padded"):
+                from .ops.fused_leapfrog import pad_faces, unpad_faces
+                from .ops.halo import update_halo_padded_faces
+
+                C, *faces = (A.clone() for A in fields)
+                got = update_halo_padded_faces(C, *pad_faces(*faces), width=width)
+                out.update({f"{name}_padded": A.numpy()
+                            for name, A in zip(task["fields"], (got[0], *unpad_faces(*got[1:])))})
             update_halo(*fields, width=width)
             return {**out, **{name: A.numpy() for name, A in zip(task["fields"], fields)}}
         if task["kind"] in models:
@@ -381,18 +397,27 @@ def _run_batched(task: dict, inputs: dict, models: dict, dtypes: dict) -> dict:
     return out
 
 
-def _count_p2p(counts):
+def _count_p2p(counts, log=None):
     """Count the ``P2POp``s `torch.distributed.batch_isend_irecv` issues in
     ``counts`` (by tag: ``ops.halo._issue_permute`` tags a dim-``d``
     message ``2d`` or ``2d+1`` in the forward and ``ADJOINT_TAG`` more in
-    the backward).  Returns a function that restores the original."""
+    the backward); with ``log``, also append each op's ``(kind, peer, tag,
+    nbytes, call)``: ``kind`` ``"send"`` or ``"recv"``, ``nbytes`` its
+    buffer's bytes, ``call`` the index of the ``batch_isend_irecv`` that
+    issued it.  Returns a function that restores the original."""
     import torch.distributed as dist
 
     issue = dist.batch_isend_irecv
+    calls = [0]
 
     def counted(ops):
         for op in ops:
             counts[op.tag // 2] += 1
+            if log is not None:
+                log.append(("send" if op.op is dist.isend else "recv", int(op.peer),
+                            int(op.tag), op.tensor.numel() * op.tensor.element_size(),
+                            calls[0]))
+        calls[0] += 1
         return issue(ops)
 
     dist.batch_isend_irecv = counted
@@ -751,6 +776,14 @@ def _run_tracing(task: dict) -> dict:
     diffusion3d.run(task["nt"], *task["nxyz"], dtype=torch.float64, **grid)
     tracing.dump_trace()
     return out
+
+
+def _run_bench(task: dict) -> dict:
+    """The ``"bench"`` task (see the module docstring)."""
+    from .benchmarks import run
+
+    rec = getattr(run, task["func"])(**task["kwargs"], emit=False, device="cpu")
+    return {"record": np.frombuffer(json.dumps(rec).encode(), np.uint8)}
 
 
 def _run_tuning(task: dict) -> dict:

@@ -1,7 +1,7 @@
 """``igg.analysis`` — the port's static-analysis suite (the JAX package's
 ``analysis``, over what the port has to read).
 
-Nine analyzers, each a host pass (`core.REGISTRY`):
+Ten analyzers, each a host pass (`core.REGISTRY`):
 
 * ``collective-consistency`` — cross-rank collective-ordering divergence
   (the distributed-deadlock class): the AST rank-guard pass over the
@@ -27,14 +27,21 @@ Nine analyzers, each a host pass (`core.REGISTRY`):
   on every simulated rank (`perms`);
 * ``grad-soundness`` — no detached input on a differentiable entry's
   ``grad_fn`` graph, and the backward sends cotangents back (`gradflow`);
-* ``ptxas-budget`` (JAX: hlo-cost) — registers, spills, stack and shared
-  memory per kernel entry against ``analysis/ptxas_baseline.json``; it
-  needs a build of the kernels and reports itself skipped without one
-  (`ptxas`).
+* ``cost-model`` (JAX: hlo-cost, its host half) — each program of JAX's
+  compiled matrix, run on every rank of a simulated grid, holds its hops,
+  payload bytes per hop, kernel launches and modeled HBM bytes to the
+  committed ``analysis/cost_baseline.json`` (`costmodel`; `reconcile` joins
+  its modeled bytes to what T_eff counts);
+* ``ptxas-budget`` (JAX: hlo-cost, its compiler half) — registers, spills,
+  stack and shared memory per kernel entry against
+  ``analysis/ptxas_baseline.json``; it needs a build of the kernels and
+  reports itself skipped without one (`ptxas`).
 
 Entry points: `run` (in-process), ``python -m
 implicitglobalgrid_tpu_torch.analysis`` (CLI; SARIF with ``--sarif``;
-``refresh`` rewrites the ptxas baseline), ``tests/test_torch_analysis.py``.
+``refresh`` rewrites the ptxas baseline, ``refresh cost`` the cost
+baseline, each with a justification per change),
+``tests/test_torch_analysis.py``, ``tests/test_torch_reconcile.py``.
 Findings, fingerprints, the baseline file (``analysis/baseline.json``) and
 exit codes are the JAX package's.
 
@@ -52,8 +59,26 @@ graph (ROADMAP Queue A leftover 8).
 **bench-regression.** In JAX it holds the committed ``BENCH_r*.json``
 trajectory within per-metric tolerance bands; its sibling
 ``tuning.seed_from_bench`` seeds winners from those records.  Both read
-TPU numbers, which are not the port's; the port has no H100 bench records
-and no ``BENCHMARK.json`` yet.  Both wait for those records (leftover 13).
+TPU numbers, which are not the port's.  The port's harness
+(`benchmarks.bench`) writes ``BENCH_H100_r<NN>.json`` records, none is
+committed yet, and there is no ``BENCHMARK.json``: both wait for those
+records (leftover 13).
+
+**ir.py.** JAX's traced and compiled IR of the config matrix (jaxprs,
+optimized HLO).  The port has neither: its passes run the port's own code
+on simulated ranks (`_sim`: `simulated_grid`, `recording_group`), which is
+the twin of that role; the matrix's names and configs are copied into
+`costmodel`.
+
+**batch_hlo_ab, aot_weak_proxy** (JAX ``benchmarks/run.py:570``, ``:730``).
+The first reads the collective-permutes of XLA's optimized HLO of the
+batched exchange; its structural claim (B members, the unbatched hop count,
+B times the payload) is the ``cost-model`` program
+``exchange/porous[coalesce=True,batch=4]``.  The second compiles XLA's
+program ahead of time for a 256-chip TPU topology; the port compiles
+kernels, not programs, and its multi-GPU points wait for cards (leftover
+3).  `benchmarks.run` refuses the ``batch_hlo`` mode by name, and
+`benchmarks.bench` records both extras as skipped, with these reasons.
 
 **utils/aot.py, utils/compat.py, utils/hlo_analysis.py.** JAX's
 ahead-of-time compilation, version shims and HLO parser.  The port

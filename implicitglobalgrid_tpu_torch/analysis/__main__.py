@@ -11,6 +11,9 @@ Examples::
     python -m implicitglobalgrid_tpu_torch.analysis --sarif out.sarif
     python -m implicitglobalgrid_tpu_torch.analysis refresh --justify-all "why"
         # rebuild the kernels and rewrite analysis/ptxas_baseline.json
+    python -m implicitglobalgrid_tpu_torch.analysis refresh cost --justify \
+        "exchange/porous[coalesce=True]::bytes_accessed=why"
+        # rewrite analysis/cost_baseline.json from a fresh census
 
 With no analyzer named (or ``--all``) every analyzer runs: the port's suite
 is host passes, seconds in all (``ptxas-budget`` reports itself skipped
@@ -33,6 +36,10 @@ from .core import REGISTRY
 
 def main(argv=None) -> int:
     raw = sys.argv[1:] if argv is None else list(argv)
+    if raw[:2] == ["refresh", "cost"]:
+        from .costmodel import refresh_main
+
+        return refresh_main(raw[2:])
     if raw[:1] == ["refresh"]:
         from .ptxas import refresh_main
 

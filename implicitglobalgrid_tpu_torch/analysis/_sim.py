@@ -55,11 +55,11 @@ def set_rank(me: int, dims, table=topology.neighbors_table):
 
 @contextlib.contextmanager
 def recording_group():
-    """Record instead of send: yields ``(log, counts)``.  ``log`` lists the
-    ``(kind, peer, tag)`` of every `P2POp` issued (``kind`` ``"send"`` or
-    ``"recv"``); ``counts`` is the port's ``P2POp`` counter
-    (`_workers._count_p2p`): the exchange's messages per grid dimension x,
-    y, z, then its adjoint's.  Receive buffers are zero-filled, and the ops
+    """Record instead of send: yields ``(log, counts)``, both kept by the
+    port's ``P2POp`` hook (`_workers._count_p2p`): ``log`` lists the
+    ``(kind, peer, tag, nbytes, call)`` of every `P2POp` issued, ``counts``
+    the exchange's messages per grid dimension x, y, z, then its
+    adjoint's.  Receive buffers are zero-filled, and the ops
     complete at once.  A `P2POp` needs a default process group: without
     one, a one-rank gloo group over an in-memory store stands in (nothing
     is ever sent on it) and is destroyed on exit."""
@@ -74,14 +74,12 @@ def recording_group():
 
     def record(ops):
         for op in ops:
-            kind = "send" if op.op is dist.isend else "recv"
-            if kind == "recv":
+            if op.op is not dist.isend:
                 op.tensor.zero_()
-            log.append((kind, int(op.peer), int(op.tag)))
         return []
 
     dist.batch_isend_irecv = record
-    restore = _workers._count_p2p(counts)
+    restore = _workers._count_p2p(counts, log)
     try:
         yield log, counts
     finally:

@@ -39,17 +39,17 @@ BATCHED_CENSUS_B = 4
 OPS_PER_PAIR = 4
 
 
-def model_fields(model: str, n: int, batch: int | None = None):
-    """The exchange set of ``model`` on ``n^3`` blocks (float64 zeros; the
-    staggered faces ``n+1`` along their own axis), with a leading ensemble
-    axis of ``batch`` members when given."""
+def model_fields(model: str, n: int, batch: int | None = None, dtype=None):
+    """The exchange set of ``model`` on ``n^3`` blocks (zeros, float64 unless
+    ``dtype``; the staggered faces ``n+1`` along their own axis), with a
+    leading ensemble axis of ``batch`` members when given."""
     import torch
 
     faces = [tuple(n + (a == d) for a in range(3)) for d in range(3)]
     shapes = {"diffusion": [(n,) * 3], "acoustic": [(n,) * 3, *faces],
               "porous": [(n,) * 3, *faces, (n,) * 3]}[model]
     lead = () if batch is None else (batch,)
-    return [torch.zeros(lead + s, dtype=torch.float64) for s in shapes]
+    return [torch.zeros(lead + s, dtype=dtype or torch.float64) for s in shapes]
 
 
 def exchange_census(fields, *, coalesce, batched: bool = False) -> list[int]:

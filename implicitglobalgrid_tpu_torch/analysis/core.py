@@ -229,6 +229,19 @@ REGISTRY: dict[str, AnalyzerSpec] = {
             cost="trace",
         ),
         AnalyzerSpec(
+            name="cost-model",
+            module="implicitglobalgrid_tpu_torch.analysis.costmodel",
+            func="run",
+            title="each program of the cost matrix holds its hops, payload bytes per hop, "
+            "kernel launches and modeled HBM bytes to the committed cost baseline "
+            "(simulated ranks)",
+            paths=("implicitglobalgrid_tpu_torch/ops/**",
+                   "implicitglobalgrid_tpu_torch/models/**",
+                   "implicitglobalgrid_tpu_torch/parallel/**",
+                   "implicitglobalgrid_tpu_torch/tuning/space.py"),
+            cost="trace",
+        ),
+        AnalyzerSpec(
             name="ptxas-budget",
             module="implicitglobalgrid_tpu_torch.analysis.ptxas",
             func="run",

@@ -61,7 +61,7 @@ def message_census(dims, periods, disp: int = 1, table=None):
                     continue
                 del log[:]
                 _issue_permute(d, gg, torch.zeros(1), torch.zeros(1))
-                for kind, peer, tag in log:
+                for kind, peer, tag, *_ in log:
                     out.setdefault((d, tag), []).append((kind, rank, peer))
     return out
 

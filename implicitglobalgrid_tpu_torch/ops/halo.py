@@ -722,6 +722,33 @@ def finish_slab_exchange(fields, pends):
     return tuple(fields)
 
 
+def update_halo_padded_faces(C, Axp, Ayp, Azp, *, width: int = 1, dims=None, coalesce=None):
+    """Slab-exchange a cell field and three face fields held in the
+    `ops.fused_leapfrog.pad_faces` layout, in place; returns the four.
+
+    The JAX package's entry for the TPU kernels' padded layout.  The slab
+    planes are those of the real ``n+1`` faces: the exchange runs on
+    `ops.fused_leapfrog.unpad_faces`' views, so the received planes are
+    written through into the padded arrays.  Owned results are bit for bit
+    those of unpad -> `update_halo` -> pad; the junk tail past the real
+    faces is left as it was (the layout forbids reading it).  ``dims``:
+    exchange these dimensions only (default all, in order); ``coalesce`` as
+    in `update_halo`.  The Hopper kernels read the real face arrays, so
+    nothing in the port calls this.
+    """
+    from .fused_leapfrog import unpad_faces
+
+    _grid.check_initialized()
+    gg = _grid.global_grid()
+    if width < 1:
+        raise ValueError(f"width must be >= 1 (got {width})")
+    fields = (C, *unpad_faces(Axp, Ayp, Azp))
+    _validate_fields(fields, gg)
+    for d in range(NDIMS) if dims is None else dims:
+        _exchange_dim(fields, d, gg, width, 0, coalesce)
+    return C, Axp, Ayp, Azp
+
+
 def update_halo(*fields, width: int = 1, coalesce: bool | None = None):
     """Update the halo planes of the given field(s) in place.
 

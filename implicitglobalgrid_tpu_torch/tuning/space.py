@@ -175,16 +175,25 @@ def tile_ladder(model: str, shape, k: int, dtype, device=None):
 
 
 def modeled_cost(model: str, shape, dtype, config: dict, *, gg=None,
-                 npt: int | None = None, device=None) -> dict:
+                 npt: int | None = None, device=None, faces: bool = False) -> dict:
     """The static prior of one candidate: modeled HBM ``bytes_per_step``
     (per time step — per PT iteration for porous, times ``npt``), the
     kernel's shared memory per block ``smem_bytes`` (0 for a plain-torch
-    cadence), and ``collectives_per_step``."""
+    cadence), and ``collectives_per_step``.
+
+    The kernels' traffic model of the port, shared by the tuner's ranking
+    and the cost model (`analysis.costmodel`, `analysis.reconcile`).  Every
+    field counts ``shape``'s cells; ``faces=True`` counts each staggered
+    field at its ``n+1`` face shape instead (the real arrays; the ranking
+    does not need it)."""
     facts = MODELS[model]
     n0, n1, n2 = shape
     vol = n0 * n1 * n2
     size = itemsize(dtype)
-    rw, ro = facts["fields_rw"], facts["fields_ro"]
+    rw = [vol] * facts["fields_rw"]
+    if faces and facts["stagger"]:
+        rw[1:] = [vol // shape[a] * (shape[a] + 1) for a in range(3)]
+    rw, ro = sum(rw), vol * facts["fields_ro"]
     # npt scales the porous traffic linearly; it is constant across the
     # candidates of one point, so ranking survives an unknown (None) npt
     iters = (int(npt) if model == "porous_convection3d" and npt is not None
@@ -201,10 +210,10 @@ def modeled_cost(model: str, shape, dtype, config: dict, *, gg=None,
         xs = (n0 + 2 * k * (-(-n0 // tile[0]) - 1)) / n0
         redundancy = xs * (ey * ez) / float(min(tile[1], n1) * min(tile[2], n2))
         # One windowed read + one owned write per field per k steps.
-        bytes_per = (rw * (1 + redundancy) + ro * redundancy) * vol * size / k
+        bytes_per = (rw * (1 + redundancy) + ro * redundancy) * size / k
         smem = int(mod.window_bytes(shape, k, tile, size))
     else:
-        bytes_per = (2 * rw + ro) * vol * size
+        bytes_per = (2 * rw + ro) * size
     active = _active_dims(gg)
     if active:
         nf = facts["exchanged_fields"]

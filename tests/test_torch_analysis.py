@@ -9,7 +9,9 @@ budget table.  The six twins of the JAX passes (stream-aliasing,
 overlap-independence, collective-budget, perm-validity, grad-soundness,
 ptxas-budget) each catch a seeded positive and are clean on the tree;
 ptxas-budget's parser and comparison run on a recorded ``-Xptxas -v``
-report, and it reports itself skipped where nothing was built.  Port twins of JAX `tests/test_static_analysis.py`
+report, and it reports itself skipped where nothing was built (the seventh,
+cost-model, has its own file, ``tests/test_torch_reconcile.py``).  Port
+twins of JAX `tests/test_static_analysis.py`
 and `tests/test_tuning.py`: the rank-guard pass fires and stays quiet on
 torch fixtures; the real host-plan censuses are clean and a seeded
 rank-keyed tune lookup is caught; tune-cache-valid fires on seeded defects
@@ -369,7 +371,7 @@ def test_full_suite_runs_clean():
     assert list(tcore.REGISTRY) == [
         "collective-consistency", "knob-decl", "tune-cache-valid", "stream-aliasing",
         "overlap-independence", "collective-budget", "perm-validity", "grad-soundness",
-        "ptxas-budget"]
+        "cost-model", "ptxas-budget"]
     # without a kernel build (no nvcc) ptxas-budget skips itself, never "clean"
     assert report.ran + report.skipped == list(tcore.REGISTRY)
     assert report.skipped in ([], ["ptxas-budget"])
@@ -388,7 +390,7 @@ def test_cli_runs_clean_and_writes_sarif(tmp_path):
         [sys.executable, "-m", "implicitglobalgrid_tpu_torch.analysis", "--sarif", str(sarif)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "8 analyzer(s) ran, 1 skipped — clean" in out.stdout
+    assert "9 analyzer(s) ran, 1 skipped — clean" in out.stdout
     assert "SKIPPED  analyzer ptxas-budget: no nvcc build report" in out.stdout
     doc = json.loads(sarif.read_text())
     assert doc["runs"][0]["tool"]["driver"]["name"] == "igg-lint-torch"
