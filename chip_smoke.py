@@ -289,9 +289,12 @@ and then prints no result line):
    phases 3, 4, 5 and 6's exact configs (diffusion 256^3 periodic x, y, z
    overlap 8 ``fused_k=4``, 16 steps a call; 512^3 non-periodic, 8 steps;
    acoustic periodic z overlap 12 ``fused_k=6``, 24 steps; porous npt=12
-   periodic z overlap 14 ``fused_k=6``, 2 steps), 20 timed calls each: the
-   record's path is ``cuda-fused``, the kernel's launch count rose, and its
-   ms per step is within 5% of the same run's phase reading.  (b)
+   periodic z overlap 14 ``fused_k=6``, 2 steps), 20 timed calls each,
+   three times per config in turns with three readings of the same config
+   timed the phase's way (``phase_way_ms``; order ``HARNESS_TURNS``): each
+   record's path is ``cuda-fused``, the kernel's launch count rose, and the
+   median of the harness's ms per step is within 5% of the median of the
+   phase's way's; the phase's own reading is printed beside them.  (b)
    ``benchmarks.bench`` with no record file (``IGG_TUNE_CACHE`` a fresh
    directory): one JSON line; every extra carries numbers or is one of the
    twin's named skips, none holds an error; the checkout's top level is
@@ -317,6 +320,27 @@ and then prints no result line):
    with ``IGG_TELEMETRY=0``, after ``gc.collect()`` and
    ``torch.cuda.empty_cache()``, and after resetting telemetry and tracing
    as well.  It prints; it fails on nothing.
+19. The perf gate, the seed layer and the tuner at the bench's key, on
+   18b's record (no new bench run).  (a) ``analysis.perf.gate_summary`` of
+   the record against the newest committed ``BENCH_H100_r<NN>.json``:
+   checked, regressions, waived, missing and both records' ``device``
+   blocks are printed; the phase fails if the record has no ``device``
+   block, if it checked nothing against a record of the same card, power
+   limit and headline metric, if the record's own ``extras.perf_gate``
+   differs from it, or if ``scripts.check_perf -c`` exits otherwise than
+   the verdict says (0 within tolerance, 1 a regression, 2 another card).
+   A metric that dropped is printed and named, not failed: the verdict
+   rides in the record.  (b) ``python -m implicitglobalgrid_tpu_torch.tuning
+   seed --dry-run`` over the committed records: every ``SEEDABLE`` row
+   yields an entry with the bench's hand-picked config, admissible under
+   ``admissibility_error`` on this card and equal to the committed seed
+   entry.  (c) ``benchmarks.run.bench_tuned_vs_default`` for diffusion at
+   the bench's key (256^3 non-periodic, 24-step chunks) with an empty
+   primary cache, so that the committed seed layer answers: whether it was
+   a cache hit, its config and source, ``tuned_speedup``, and the tuned
+   ms per step against 18b's hand-picked ``diffusion_pallas_fused4``; a
+   miss on a key the seed layer holds fails, and the tuned chunk must
+   launch ``fused_diffusion_steps``.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -877,10 +901,12 @@ def main() -> None:
     PHASE[0] = "17"
     phase17(torch, reset_counts, counts, card)
     PHASE[0] = "18"
-    phase18(torch, igg, card, harness, bench_out=args.bench_out)
+    bench_record = phase18(torch, igg, card, harness, bench_out=args.bench_out)
     phase18e(torch, card, early, main_step_ms["diffusion3d"])
+    PHASE[0] = "19"
+    phase19(reset_counts, counts, card, bench_record)
 
-    print(f"chip_smoke: phases 1-18 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(f"chip_smoke: phases 1-19 passed in {time.perf_counter() - t_start!r} s {card}")
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3101,53 +3127,103 @@ def phase17(torch, reset_counts, counts, card, device="cuda", sizes=None) -> Non
 
 
 #: Phase 18a's harness runs at phases 3, 4, 5 and 6's configs: (key of the
-#: phase's ms per step, `benchmarks.run` function, its kwargs, the kernel).
+#: phase's ms per step, `benchmarks.run` function, its kwargs, the kernel,
+#: the model module, and the phase's `cuda_ms` reps and warm-up calls).
 HARNESS_RUNS = (
     ("diffusion3d", "bench_diffusion",
-     dict(n=256, chunk=16, fused_k=4, overlap=8, period="xyz"), "fused_diffusion_steps"),
+     dict(n=256, chunk=16, fused_k=4, overlap=8, period="xyz"), "fused_diffusion_steps",
+     "diffusion3d", 5, 2),
     ("acoustic3d", "bench_acoustic",
-     dict(n=256, chunk=24, fused_k=6, overlap=12, period="z"), "fused_leapfrog_steps"),
+     dict(n=256, chunk=24, fused_k=6, overlap=12, period="z"), "fused_leapfrog_steps",
+     "acoustic3d", 3, 2),
     ("porous_convection3d", "bench_porous",
-     dict(n=256, chunk=2, npt=12, fused_k=6, overlap=14, period="z"), "fused_pt_iterations"),
+     dict(n=256, chunk=2, npt=12, fused_k=6, overlap=14, period="z"), "fused_pt_iterations",
+     "porous_convection3d", 3, 1),
     ("diffusion3d_512", "bench_diffusion", dict(n=512, chunk=8, fused_k=4),
-     "fused_diffusion_steps"),
+     "fused_diffusion_steps", "diffusion3d", 3, 1),
 )
+
+#: The order in which 18a takes its readings of one config: "p" the
+#: phase's way of timing it (`phase_way_ms`), "h" the harness.
+HARNESS_TURNS = "phhpph"
+
+
+def phase_way_ms(torch, model, kw, reps, warmup) -> float:
+    """Ms per step of ``kw``'s config timed as phases 3-6 time it: a fresh
+    grid, ``model.make_multi_step(chunk, fused_k=...)`` called on the same
+    inputs each time after one warm-up call, `cuda_ms` over the phase's
+    ``reps`` and ``warmup``."""
+    import importlib
+
+    import implicitglobalgrid_tpu_torch as igg
+    from implicitglobalgrid_tpu_torch.benchmarks import run
+
+    mod = importlib.import_module(f"implicitglobalgrid_tpu_torch.models.{model}")
+    setup_kw = run._grid_kwargs(kw.get("overlap"), kw.get("period"))
+    if "npt" in kw:
+        setup_kw["npt"] = kw["npt"]
+    n, chunk = kw["n"], kw["chunk"]
+    state, params = mod.setup(n, n, n, dtype=torch.float32, quiet=True, **setup_kw)
+    fused = mod.make_multi_step(params, chunk, fused_k=kw["fused_k"])
+    fused(*state)  # warm-up (allocator), as in the phases
+    torch.cuda.synchronize()
+    ms = cuda_ms(torch, lambda: fused(*state), reps=reps, warmup=warmup) / chunk
+    igg.finalize_global_grid()
+    return ms
 
 
 def phase18a(torch, reset_counts, counts, card, phase_ms) -> list:
     """Phase 18a, run right after phase 6: the harness at phases 3-6's
-    configs, against their ms per step (``phase_ms``, by `HARNESS_RUNS`
-    key) taken in the same process state; returns its lines, which phase
-    18 prints again."""
+    configs, in turns (`HARNESS_TURNS`) with the phase's way of timing the
+    same config, so that both read the host as it is at that moment (the
+    diffusion 256^3 chunk is host-paced: PERF.md).  The medians of each
+    way's three readings are compared; the phase's own reading
+    (``phase_ms``, by `HARNESS_RUNS` key) is printed beside them.  Returns
+    its lines, which phase 18 prints again."""
     from implicitglobalgrid_tpu_torch.benchmarks import run
 
     t0 = time.perf_counter()
     lines = []
-    for key, func, kw, kernel in HARNESS_RUNS:
-        reset_counts()
-        rec = getattr(run, func)(reps=20, dtype="float32", emit=False, device="cuda", **kw)
-        c = counts()
-        ratio = rec["t_it_ms"] / phase_ms[key]
+    for key, func, kw, kernel, model, reps, warmup in HARNESS_RUNS:
+        recs, phase_way, launches = [], [], {}
+        for turn in HARNESS_TURNS:
+            if turn == "p":
+                phase_way.append(phase_way_ms(torch, model, kw, reps, warmup))
+                continue
+            reset_counts()
+            recs.append(getattr(run, func)(reps=20, dtype="float32", emit=False, device="cuda",
+                                           **kw))
+            for name, c in counts().items():
+                launches[name] = launches.get(name, 0) + c
+        harness_ms = statistics.median(r["t_it_ms"] for r in recs)
+        phase_way_med = statistics.median(phase_way)
+        ratio = harness_ms / phase_way_med
+        metric = recs[0]["metric"]
         lines.append(
             f"phase 18a: benchmarks.run {func}({', '.join(f'{k}={v}' for k, v in kw.items())}):"
-            f" {rec['metric']} {rec['t_it_ms']!r} ms/step (spread {rec['spread']}), T_eff "
-            f"{rec['value']!r} GB/s, path {rec['path']}, launches {c}; the phase's reading "
-            f"{phase_ms[key]!r} ms/step, ratio {ratio!r} {card}")
+            f" {metric} {[r['t_it_ms'] for r in recs]} ms/step, median {harness_ms!r} (spreads "
+            f"{[r['spread'] for r in recs]}), T_eff {[r['value'] for r in recs]} GB/s, paths "
+            f"{[r['path'] for r in recs]}, launches {launches}; the phase's way in turns with "
+            f"it ({HARNESS_TURNS}) {phase_way!r} ms/step, median {phase_way_med!r}, ratio "
+            f"{ratio!r}; the phase's own reading {phase_ms[key]!r} ms/step, ratio "
+            f"{harness_ms / phase_ms[key]!r} {card}")
         print(lines[-1])
-        if rec["path"] != "cuda-fused" or c[kernel] <= 0:
-            fail(f"18a: {func} did not run {kernel} on the card: path {rec['path']}, {c}")
+        if any(r["path"] != "cuda-fused" for r in recs) or launches[kernel] <= 0:
+            fail(f"18a: {func} did not run {kernel} on the card: paths "
+                 f"{[r['path'] for r in recs]}, {launches}")
         if not 0.95 <= ratio <= 1.05:
-            fail(f"18a: {rec['metric']} {rec['t_it_ms']!r} ms/step is not within 5% of the "
-                 f"phase's {phase_ms[key]!r}")
+            fail(f"18a: {metric} {harness_ms!r} ms/step (median of the harness's {len(recs)}) "
+                 f"is not within 5% of the phase's way's {phase_way_med!r} (median of "
+                 f"{len(phase_way)}, taken in turns with it)")
     lines.append(f"phase 18a: {time.perf_counter() - t0!r} s {card}")
     print(lines[-1])
     return lines
 
 
-def phase18(torch, igg, card, harness=(), bench_out=None) -> None:
+def phase18(torch, igg, card, harness=(), bench_out=None) -> dict:
     """Phase 18b-d: the bench twin, the reconcile join and the padded-face
     exchange on the card (see the module docstring); first 18a's lines
-    (``harness``: it ran after phase 6) again."""
+    (``harness``: it ran after phase 6) again.  Returns 18b's record."""
     import io
 
     from implicitglobalgrid_tpu_torch.analysis import core as acore
@@ -3257,6 +3333,7 @@ def phase18(torch, igg, card, harness=(), bench_out=None) -> None:
         del state, fields, C, padded, got, want
     print(f"phase 18d: {time.perf_counter() - t0!r} s {card}")
     print(f"phase 18: {time.perf_counter() - t_phase!r} s {card}")
+    return record
 
 
 def host_probe(torch, label: str, card: str, reps: int = 30) -> dict:
@@ -3322,7 +3399,7 @@ def phase18e(torch, card, early: dict, phase3_ms: float) -> None:
     from implicitglobalgrid_tpu_torch.utils import telemetry, tracing
 
     t0 = time.perf_counter()
-    _, func, kw, _ = HARNESS_RUNS[0]
+    _, func, kw, *_ = HARNESS_RUNS[0]
     rec = getattr(run, func)(reps=20, dtype="float32", emit=False, device="cuda", **kw)
     print(f"phase 18e: at the end, benchmarks.run {func} at phase 3's config: {rec['t_it_ms']!r} "
           f"ms/step (spread {rec['spread']}); phase 3's {phase3_ms!r}, ratio "
@@ -3349,6 +3426,108 @@ def phase18e(torch, card, early: dict, phase3_ms: float) -> None:
         print(f"phase 18e: {label}: host {r['host_ms'] / early['host_ms']!r}x, device "
               f"{r['device_ms'] / early['device_ms']!r}x the reading right after 18a {card}")
     print(f"phase 18e: {time.perf_counter() - t0!r} s {card}")
+
+
+def phase19(reset_counts, counts, card, record) -> None:
+    """Phase 19: the perf gate over 18b's ``record``, ``seed --dry-run`` on
+    the committed records, and the tuner at the bench's diffusion key
+    against the committed seed layer (see the module docstring)."""
+    import io
+
+    from implicitglobalgrid_tpu_torch import tuning
+    from implicitglobalgrid_tpu_torch.analysis import perf
+    from implicitglobalgrid_tpu_torch.benchmarks import run
+    from implicitglobalgrid_tpu_torch.scripts import check_perf
+    from implicitglobalgrid_tpu_torch.tuning.__main__ import main as tuning_main
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="igg_phase19_"))
+    try:
+        # -- 19a: the gate verdict, and the CLI's exit code --------------------
+        dev = record.get("device")
+        if not isinstance(dev, dict) or not dev.get("name"):
+            fail(f"19a: the bench record has no device block: {dev!r}")
+        records, skipped = perf.load_bench_records(str(ROOT))
+        if not records or skipped:
+            fail(f"19a: committed BENCH_H100 records {[r for r, _ in records]}, unparseable "
+                 f"{skipped}")
+        ref_round, ref = records[-1]
+        mismatch = perf.comparability_error(record, ref)
+        verdict = perf.gate_summary(record, str(ROOT))
+        print(f"phase 19a: gate vs {perf.record_name(ref_round)}: ok {verdict['ok']}, checked "
+              f"{verdict.get('checked')}, regressions "
+              f"{[(r['metric'], r['drop']) for r in verdict.get('regressions', [])]}, waived "
+              f"{[(r['metric'], r['drop']) for r in verdict.get('waived', [])]}, missing "
+              f"{verdict.get('missing', [])}; note {verdict.get('note')}; device {dev}, "
+              f"reference device {ref.get('device')} {card}")
+        if mismatch is None and not verdict.get("checked"):
+            fail(f"19a: nothing checked against a record of the same card: {verdict}")
+        embedded = record["extras"].get("perf_gate", {})
+        if [embedded.get(k) for k in ("ok", "checked", "regressions")] != [
+                verdict.get(k) for k in ("ok", "checked", "regressions")]:
+            fail(f"19a: the record's own perf_gate {embedded} is not the verdict {verdict}")
+        cand = work / "candidate.json"
+        cand.write_text(json.dumps(record))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            rc = check_perf.main(["-c", str(cand), "--json"])
+        want = 2 if mismatch is not None else (0 if verdict["ok"] else 1)
+        print(f"phase 19a: check_perf -c exit {rc} (the verdict says {want}) {card}")
+        if rc != want:
+            fail(f"19a: check_perf exited {rc}, the verdict says {want}:\n{out.getvalue()}")
+
+        # -- 19b: seed --dry-run over the committed records --------------------
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tuning_main(["seed", "--dry-run", "--json", "--cache", str(work / "seed")])
+        entries = json.loads(out.getvalue()) if rc == 0 else None
+        if entries is None or len(entries) != len(tuning.SEEDABLE):
+            fail(f"19b: seed --dry-run exit {rc} gave {entries!r}, not one entry per row")
+        committed = {tuning.entry_filename(doc["key"]): doc for _, doc in tuning.TuneCache(
+            primary=tuning.SEED_DIR, fallbacks=()).entries() if doc}
+        for row, entry in zip(tuning.SEEDABLE, entries):
+            key, config = entry["key"], entry["config"]
+            err = tuning.admissibility_error(key, config)
+            ours = committed.get(tuning.entry_filename(key))
+            same = ours is not None and all(ours[f] == entry[f] for f in (
+                "key", "config", "source", "measured"))
+            print(f"phase 19b: {row['path']}: {key['model']} {key['size']} {config} from "
+                  f"{entry['source']}, {entry['measured']}, admissible {err is None}, the "
+                  f"committed entry {'equal' if same else 'DIFFERENT'} {card}")
+            if config != row["config"] or err is not None or not same:
+                fail(f"19b: {row['path']}: config {config}, admissibility {err!r}, committed "
+                     f"{ours}")
+
+        # -- 19c: the tuner at the bench's diffusion key -----------------------
+        saved = os.environ.get("IGG_TUNE_CACHE")
+        os.environ["IGG_TUNE_CACHE"] = str(work / "primary")
+        try:
+            reset_counts()
+            rec = run.bench_tuned_vs_default(model="diffusion", n=256, chunk=24, reps=3,
+                                             emit=False, device="cuda")
+            c = counts()
+        finally:
+            if saved is None:
+                os.environ.pop("IGG_TUNE_CACHE", None)
+            else:
+                os.environ["IGG_TUNE_CACHE"] = saved
+        key = tuning.make_key("diffusion3d", (256, 256, 256), "float32", backend="cuda",
+                              topology=tuning.BENCH_TOPOLOGY, nsteps=24)
+        held = tuning.entry_filename(key) in committed
+        hand = record["extras"]["diffusion_pallas_fused4"]["t_it_ms"]
+        print(f"phase 19c: diffusion 256^3 24-step tuned_vs_default: cache {rec['cache']}, "
+              f"config {rec['config']} from {rec['source']}, tuned_speedup "
+              f"{rec['tuned_speedup']!r} (default {rec['t_default_ms']!r}, tuned "
+              f"{rec['t_tuned_ms']!r} ms/step); the hand-picked fused_k=4 in 18b "
+              f"{hand!r} ms/step, tuned / hand-picked {rec['t_tuned_ms'] / hand!r}; launches "
+              f"{c} {card}")
+        if held and rec["cache"] != "hit":
+            fail(f"19c: the seed layer holds the bench key, but the tuner missed: {rec}")
+        if c["fused_diffusion_steps"] <= 0:
+            fail(f"19c: the tuned chunk launched no fused_diffusion_steps: {c}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 19: {time.perf_counter() - t_phase!r} s {card}")
 
 
 if __name__ == "__main__":

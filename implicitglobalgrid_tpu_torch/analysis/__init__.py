@@ -1,7 +1,7 @@
 """``igg.analysis`` — the port's static-analysis suite (the JAX package's
 ``analysis``, over what the port has to read).
 
-Ten analyzers, each a host pass (`core.REGISTRY`):
+Eleven analyzers, each a host pass (`core.REGISTRY`):
 
 * ``collective-consistency`` — cross-rank collective-ordering divergence
   (the distributed-deadlock class): the AST rank-guard pass over the
@@ -35,7 +35,13 @@ Ten analyzers, each a host pass (`core.REGISTRY`):
 * ``ptxas-budget`` (JAX: hlo-cost, its compiler half) — registers, spills,
   stack and shared memory per kernel entry against
   ``analysis/ptxas_baseline.json``; it needs a build of the kernels and
-  reports itself skipped without one (`ptxas`).
+  reports itself skipped without one (`ptxas`);
+* ``bench-regression`` — the committed ``BENCH_H100_r<NN>.json`` records
+  (`benchmarks.bench` on the card): the newest round of the same card,
+  power limit and headline metric as its predecessor, and within 15% of
+  it on every gated throughput metric, modulo the justified waivers in
+  ``analysis/perf_waivers.json`` (`perf`; the CLI is
+  ``python -m implicitglobalgrid_tpu_torch.scripts.check_perf``).
 
 Entry points: `run` (in-process), ``python -m
 implicitglobalgrid_tpu_torch.analysis`` (CLI; SARIF with ``--sarif``;
@@ -55,14 +61,6 @@ read when it is built, as documented.  The hazard returns with a captured
 CUDA graph, which binds every value at capture; a twin would read the call
 graph from the captured callable to its env reads, and comes with that
 graph (ROADMAP Queue A leftover 8).
-
-**bench-regression.** In JAX it holds the committed ``BENCH_r*.json``
-trajectory within per-metric tolerance bands; its sibling
-``tuning.seed_from_bench`` seeds winners from those records.  Both read
-TPU numbers, which are not the port's.  The port's harness
-(`benchmarks.bench`) writes ``BENCH_H100_r<NN>.json`` records, none is
-committed yet, and there is no ``BENCHMARK.json``: both wait for those
-records (leftover 13).
 
 **ir.py.** JAX's traced and compiled IR of the config matrix (jaxprs,
 optimized HLO).  The port has neither: its passes run the port's own code

@@ -38,6 +38,9 @@ SEVERITIES = ("CRITICAL", "ERROR", "WARNING", "INFO")
 #: ``strict``).
 FAILING = ("CRITICAL", "ERROR")
 
+#: The repo root: the package's parent, where the committed records live.
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 @dataclass(frozen=True)
 class Finding:
@@ -251,6 +254,15 @@ REGISTRY: dict[str, AnalyzerSpec] = {
                    "implicitglobalgrid_tpu_torch/ops/_kernels.py"),
             cost="compile",
         ),
+        AnalyzerSpec(
+            name="bench-regression",
+            module="implicitglobalgrid_tpu_torch.analysis.perf",
+            func="run",
+            title="committed H100 bench trajectory within per-metric tolerance bands "
+            "(scripts/check_perf.py; waivers in analysis/perf_waivers.json)",
+            paths=("BENCH_H100_*.json", "implicitglobalgrid_tpu_torch/benchmarks/**"),
+            cost="ast",
+        ),
     )
 }
 
@@ -292,10 +304,9 @@ class Context:
 
     def __init__(self, repo_root: str | None = None,
                  package_root: str | None = None):
-        here = os.path.dirname(os.path.abspath(__file__))
-        default_pkg = os.path.dirname(here)
-        self.repo_root = repo_root or os.path.dirname(default_pkg)
-        self.package_root = package_root or default_pkg
+        self.repo_root = repo_root or REPO_ROOT
+        self.package_root = package_root or os.path.join(
+            REPO_ROOT, "implicitglobalgrid_tpu_torch")
         self._asts = None
 
     def module_asts(self) -> dict:

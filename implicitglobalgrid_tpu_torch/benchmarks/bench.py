@@ -12,9 +12,15 @@ block (``n^3`` float32, non-periodic, default ``n = 256`` on the card):
 the plain cadence and the temporally blocked kernel (``fused_k=4``).  The
 extras carry the JAX record's configs under its names (their sizes scale
 with ``n``: 512³ is ``2n``), each run through `benchmarks.run`.  Extras
-that read XLA's HLO or the TPU's bench records cannot exist here and say
+that read XLA's HLO or compile for a TPU topology cannot exist here and say
 so as ``{"skipped": why}``; an extra that raises records ``{"error": ...}``
-and the run goes on.
+and the run goes on.  ``extras.perf_gate`` is `analysis.perf.gate_summary`
+of the fresh record against the newest committed ``BENCH_H100_r<NN>.json``
+(JAX's hook): the verdict rides in the record and never sinks it.  The
+record's ``device`` block names the card it ran on (``name`` and
+``power_limit_w`` as ``nvidia-smi`` gives them, the torch and CUDA
+versions; ``{"name": "cpu"}`` on the CPU): the gate compares records of
+one card and power limit only.
 
 T_eff follows the reference community's convention (JAX's docstring): the
 step must stream T in and out, ``A_eff = 2 n^3 sizeof(dtype)``, ``T_eff =
@@ -38,19 +44,16 @@ a ``BENCHMARK.json`` benchmark's cells.
 
 from __future__ import annotations
 
-import glob
 import json
 import os
-import re
 import sys
 import time
 
+from ..analysis import perf
+from ..analysis.core import REPO_ROOT as ROOT  # where an automatic record is written
 from . import run as _bench
 
 BASELINE_TEFF_GBS = 154.0  # the reference's optimized version, per P100
-
-#: The repo root (where an automatic record is written).
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 #: Extras the port cannot produce, with why (never a number).
 SKIPPED = {
@@ -63,21 +66,13 @@ SKIPPED = {
     "batch_hlo_ab": (
         "reads the collective-permutes of XLA's optimized HLO; the port's twin is the "
         "cost-model analyzer's exchange/porous[coalesce=True,batch=4] program"),
-    "perf_gate": (
-        "the JAX perf gate reads the BENCH_r*.json TPU trajectory; the H100 gate waits for "
-        "H100 records (ROADMAP leftover 13)"),
 }
-
-_RECORD = re.compile(r"BENCH_H100_r(\d+)\.json$")
-
 
 def record_path(root: str | None = None) -> str:
     """The next ``BENCH_H100_r<NN>.json`` under ``root`` (default: the
     repo root)."""
     root = root or ROOT
-    rounds = [int(m.group(1)) for p in glob.glob(os.path.join(root, "BENCH_H100_r*.json"))
-              for m in [_RECORD.search(p)] if m]
-    return os.path.join(root, f"BENCH_H100_r{(max(rounds) + 1) if rounds else 1:02d}.json")
+    return os.path.join(root, perf.record_name(perf.next_round(root)))
 
 
 def _write_round_record(record: dict, out: str | None = "auto") -> str | None:
@@ -91,6 +86,47 @@ def _write_round_record(record: dict, out: str | None = "auto") -> str | None:
     atomic_write_json(out, record, indent=1)
     print(f"[bench] record written atomically to {out}", file=sys.stderr)
     return out
+
+
+def device_block(device) -> dict:
+    """The card the record ran on: ``name`` and ``power_limit_w`` as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    gives them (the limit in watts), and the torch and CUDA versions;
+    ``{"name": "cpu"}`` for a CPU run."""
+    import subprocess
+
+    import torch
+
+    device = torch.device(device if device is not None else "cuda")
+    if device.type != "cuda":
+        return {"name": "cpu"}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    block = {"name": torch.cuda.get_device_name(index), "power_limit_w": None,
+             "torch": torch.__version__, "cuda": torch.version.cuda}
+    # nvidia-smi counts every card; CUDA counts the visible ones
+    visible = [v.strip() for v in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+               if v.strip()]
+    smi_id = visible[index] if index < len(visible) else str(index)
+    try:
+        line = subprocess.run(
+            ["nvidia-smi", f"--id={smi_id}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=30).stdout.strip()
+        name, limit = (part.strip() for part in line.splitlines()[0].rsplit(",", 1))
+        block["name"] = name
+        block["power_limit_w"] = float(limit.removesuffix("W").strip())
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        pass  # no nvidia-smi: the name from torch, the limit unknown
+    return block
+
+
+def _perf_gate(record: dict) -> dict:
+    """`analysis.perf.gate_summary` of ``record`` against the newest
+    committed round; an exception is recorded, never raised."""
+    try:
+        return perf.gate_summary(record, ROOT)
+    except Exception as e:  # noqa: BLE001 — never let the gate sink the record
+        return {"error": f"{type(e).__name__}: {e}"}
 
 
 def _post(port: int, path: str, doc: dict, headers=None):
@@ -382,8 +418,7 @@ def main(out: str | None = None, device=None, n: int | None = None) -> dict:
     for name, fn in _configs(n, device).items():
         extra(name, fn)
     for name, why in SKIPPED.items():
-        if name != "perf_gate":
-            extras[name] = {"skipped": why}
+        extras[name] = {"skipped": why}
     extra("efficiency", lambda: efficiency(extras))
     extra("telemetry", _telemetry_extra)
     best = rec["value"]
@@ -393,9 +428,13 @@ def main(out: str | None = None, device=None, n: int | None = None) -> dict:
         best = fused["teff"]
         extras["headline_path"] = ("cuda_fused4" if fused.get("path") == "cuda-fused"
                                    else "cpu_fused4_plain")
-    extras["perf_gate"] = {"skipped": SKIPPED["perf_gate"]}
-    record = {"metric": f"diffusion3d_{n}_float32_teff", "value": best, "unit": "GB/s/chip",
-              "vs_baseline": round(best / BASELINE_TEFF_GBS, 3), "extras": extras}
+    metric = f"diffusion3d_{n}_float32_teff"
+    dev = device_block(device)
+    extras["perf_gate"] = _perf_gate({"metric": metric, "value": best, "extras": extras,
+                                      "device": dev})
+    record = {"metric": metric, "value": best, "unit": "GB/s/chip",
+              "vs_baseline": round(best / BASELINE_TEFF_GBS, 3), "extras": extras,
+              "device": dev}
     print(json.dumps(record), flush=True)
     _write_round_record(record, out)
     return record
@@ -407,10 +446,14 @@ def main_batch(out: str | None = None, device=None, n: int | None = None) -> dic
     n = n or default_n(device)
     rec = _bench.bench_batch(n=n // 2, chunk=16, reps=3, emit=False, device=device)
     extras = {"batch_ensemble": _batch_extra(rec),
-              "batch_hlo_ab": {"skipped": SKIPPED["batch_hlo_ab"]},
-              "perf_gate": {"skipped": SKIPPED["perf_gate"]}}
+              "batch_hlo_ab": {"skipped": SKIPPED["batch_hlo_ab"]}}
+    dev = device_block(device)
+    # no "value" and no "metric" on purpose (JAX's): this record's headline
+    # is members/s, the committed rounds' GB/s — only the namespaced
+    # members_per_s extras are comparable across rounds
+    extras["perf_gate"] = _perf_gate({"extras": extras, "device": dev})
     record = {"metric": "diffusion3d_batch_members_per_s", "value": rec["members_per_s"],
-              "unit": "members/s/chip", "extras": extras}
+              "unit": "members/s/chip", "extras": extras, "device": dev}
     print(json.dumps(record), flush=True)
     _write_round_record(record, out)
     return record

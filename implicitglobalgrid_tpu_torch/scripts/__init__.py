@@ -9,6 +9,8 @@ Each module keeps its JAX script's name and command line and runs as
   recovered result held bit for bit against a fault-free oracle;
 * `igg_trace` — merge, validate, summarize and export per-rank span dumps;
 * `igg_top` — one cluster view over the ranks' live-plane endpoints.
+* `check_perf` — the perf-regression gate over the committed
+  ``BENCH_H100_r<NN>.json`` bench records (`analysis.perf`).
 
 They import torch and this package only.
 """

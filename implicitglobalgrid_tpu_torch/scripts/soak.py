@@ -83,7 +83,7 @@ import subprocess
 import sys
 import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ..analysis.core import REPO_ROOT as REPO
 MODULE = "implicitglobalgrid_tpu_torch.scripts.soak"
 
 CRASH_STATUS = 17   # FaultInjector.CRASH_STATUS

@@ -16,15 +16,19 @@ point:
   resolve, and the ``make_multi_step`` hook behind ``autotune=`` /
   ``IGG_AUTOTUNE``.
 
-CLI: ``python -m implicitglobalgrid_tpu_torch.tuning sweep|show|clear``.
-Gate: the ``tune-cache-valid`` analyzer (`analysis.tunecache`) over the
-committed seed layer.  JAX's ``seed_from_bench`` (winners ingested from
-its TPU bench records) has no counterpart until H100 bench records exist
-(ROADMAP).
+CLI: ``python -m implicitglobalgrid_tpu_torch.tuning
+sweep|show|seed|clear``.  Gate: the ``tune-cache-valid`` analyzer
+(`analysis.tunecache`) over the committed seed layer.  `seed_from_bench`
+(JAX's) ingests the hand-picked configs the committed
+``BENCH_H100_r<NN>.json`` records measured on the card into seed entries
+(``source: seed:bench_h100_rNN``).
 """
 
 from .cache import (  # noqa: F401
+    BENCH_METRIC,
+    BENCH_TOPOLOGY,
     SCHEMA_VERSION,
+    SEEDABLE,
     SEED_DIR,
     TuneCache,
     admissibility_error,
@@ -34,6 +38,7 @@ from .cache import (  # noqa: F401
     make_key,
     new_entry,
     schedule_class,
+    seed_from_bench,
     topology_string,
     validate_entry,
 )

@@ -16,6 +16,13 @@ tuning`):
     List the cache entries across both layers (primary + the committed
     seed layer), with config, provenance and measured numbers.
 
+``seed``
+    Ingest the committed ``BENCH_H100_r<NN>.json`` records into seed
+    entries (the hand-picked configs the bench measured on the card, with
+    ``source: seed:bench_h100_rNN`` provenance) — written to the primary
+    layer, or to ``--cache DIR`` (the committed seed layer is
+    ``implicitglobalgrid_tpu_torch/tuning/entries``).
+
 ``clear``
     Delete the PRIMARY layer's entries (the committed seed layer is repo
     content and is never touched).
@@ -25,6 +32,7 @@ Examples::
     python -m implicitglobalgrid_tpu_torch.tuning sweep --model diffusion3d --n 256 --nsteps 16 --dry-run
     python -m implicitglobalgrid_tpu_torch.tuning sweep --model porous_convection3d --n 256 --npt 12 --nsteps 2
     python -m implicitglobalgrid_tpu_torch.tuning show --json
+    python -m implicitglobalgrid_tpu_torch.tuning seed --dry-run
     python -m implicitglobalgrid_tpu_torch.tuning clear
 
 Exit code: 0 = success, 1 = the requested point produced no admissible
@@ -188,6 +196,24 @@ def cmd_show(args) -> int:
     return 0
 
 
+def cmd_seed(args) -> int:
+    from ..analysis.core import REPO_ROOT
+    from . import seed_from_bench
+
+    entries = seed_from_bench(REPO_ROOT, _cache(args), write=not args.dry_run)
+    if args.json:
+        print(json.dumps(entries, indent=2, sort_keys=True))
+    else:
+        for e in entries:
+            print(f"seeded {e['key']['model']} {e['key']['size']} "
+                  f"{json.dumps(e['config'])} from {e['source']}"
+                  + (" (dry run)" if args.dry_run else ""))
+        if not entries:
+            print("tuning seed: no seedable extras in the committed "
+                  "BENCH_H100 records")
+    return 0
+
+
 def cmd_clear(args) -> int:
     n = _cache(args).clear()
     print(f"tuning: removed {n} entr{'y' if n == 1 else 'ies'} from "
@@ -230,6 +256,12 @@ def main(argv=None) -> int:
         px.add_argument("--json", action="store_true")
         px.add_argument("--cache", default=None)
         px.set_defaults(fn=fn)
+
+    pd = sub.add_parser("seed", help="ingest BENCH_H100_r*.json configs")
+    pd.add_argument("--dry-run", action="store_true")
+    pd.add_argument("--json", action="store_true")
+    pd.add_argument("--cache", default=None)
+    pd.set_defaults(fn=cmd_seed)
 
     args = p.parse_args(argv)
     try:

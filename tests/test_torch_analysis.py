@@ -330,7 +330,13 @@ def test_committed_seed_layer_is_clean_and_registered():
     assert run(tcore.Context()) == []
     for _path, doc in tt.TuneCache(primary=tt.SEED_DIR, fallbacks=()).entries():
         key, config = tt.validate_entry(doc)
-        assert key["backend"] == "cuda" and doc["measured"]["t_step_s"] > 0
+        assert key["backend"] == "cuda"
+        # a bench seed keeps its T_eff (JAX's porous seeds carry no step
+        # time: the bench records none per npt); any other entry its step time
+        if doc["source"].startswith("seed:bench_h100_"):
+            assert doc["measured"]["teff_gbs"] > 0
+        else:
+            assert doc["measured"]["t_step_s"] > 0
 
 
 # -- the runner and the port's own tree ------------------------------------------
@@ -371,9 +377,10 @@ def test_full_suite_runs_clean():
     assert list(tcore.REGISTRY) == [
         "collective-consistency", "knob-decl", "tune-cache-valid", "stream-aliasing",
         "overlap-independence", "collective-budget", "perm-validity", "grad-soundness",
-        "cost-model", "ptxas-budget"]
+        "cost-model", "ptxas-budget", "bench-regression"]
     # without a kernel build (no nvcc) ptxas-budget skips itself, never "clean"
-    assert report.ran + report.skipped == list(tcore.REGISTRY)
+    assert report.ran == [n for n in tcore.REGISTRY if n not in report.skipped]
+    assert sorted(report.ran + report.skipped) == sorted(tcore.REGISTRY)
     assert report.skipped in ([], ["ptxas-budget"])
     assert report.stale_suppressions == [] and report.exit_code(strict=True) == 0
     for entry in tcore.Baseline.load(tanalysis.DEFAULT_BASELINE).suppressions.values():
@@ -390,7 +397,7 @@ def test_cli_runs_clean_and_writes_sarif(tmp_path):
         [sys.executable, "-m", "implicitglobalgrid_tpu_torch.analysis", "--sarif", str(sarif)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "9 analyzer(s) ran, 1 skipped — clean" in out.stdout
+    assert "10 analyzer(s) ran, 1 skipped — clean" in out.stdout
     assert "SKIPPED  analyzer ptxas-budget: no nvcc build report" in out.stdout
     doc = json.loads(sarif.read_text())
     assert doc["runs"][0]["tool"]["driver"]["name"] == "igg-lint-torch"

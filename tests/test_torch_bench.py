@@ -11,7 +11,11 @@ runs its kernels' plain versions and says so; ``weak`` on two gloo ranks
 gives one record; the coalesced-vs-per-field A/B on two gloo ranks counts
 the hops and payloads the field shapes give; the bench twin prints one
 JSON line with the ``efficiency`` join and, under ``--no-record``, writes
-nothing, and its record files are never named ``BENCH_r<N>.json``.
+nothing, and its record files are never named ``BENCH_r<N>.json``.  Every
+record names its device (``nvidia-smi``'s card name and power limit on the
+card, ``{"name": "cpu"}`` here) and carries the perf gate's verdict against
+the committed ``BENCH_H100_r<NN>.json`` records (the batch record on its
+members/s only).
 """
 
 import ast
@@ -169,7 +173,8 @@ def test_bench_twin_prints_one_line_with_the_efficiency_join_and_writes_nothing(
     rec = tbench.main(out, device, n)
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1 and json.loads(lines[0]) == json.loads(json.dumps(rec))
-    assert set(rec) == {"metric", "value", "unit", "vs_baseline", "extras"}
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline", "extras", "device"}
+    assert rec["device"] == {"name": "cpu"}
     assert rec["metric"] == "diffusion3d_16_float32_teff"
     assert rec["vs_baseline"] == round(rec["value"] / tbench.BASELINE_TEFF_GBS, 3)
     extras = rec["extras"]
@@ -177,6 +182,11 @@ def test_bench_twin_prints_one_line_with_the_efficiency_join_and_writes_nothing(
     assert {k for k, v in extras.items() if isinstance(v, dict) and "skipped" in v} == set(
         tbench.SKIPPED)
     assert all(extras[k] == {"skipped": why} for k, why in tbench.SKIPPED.items())
+    # the gate's verdict against the committed H100 records: a CPU record is
+    # another device, so nothing is compared
+    gate = extras["perf_gate"]
+    assert gate["ok"] is True and gate["checked"] == 0
+    assert gate["note"].startswith("device-mismatch: device name 'cpu'")
     eff = extras["efficiency"]["models"]
     for model, extra in (("diffusion", "diffusion_pallas_fused4"),
                          ("acoustic", "acoustic_256_pallas_fused6"),
@@ -204,3 +214,52 @@ def test_record_files_are_never_named_like_the_tpu_rounds(tmp_path, monkeypatch)
     assert json.loads(out.read_text()) == {"value": 1}
     monkeypatch.setattr(tbench, "ROOT", str(tmp_path))
     assert tbench._write_round_record({"value": 2}, "auto").endswith("BENCH_H100_r04.json")
+
+
+def test_device_block_reads_the_card_from_nvidia_smi(monkeypatch):
+    import subprocess
+
+    import torch
+
+    assert tbench.device_block("cpu") == {"name": "cpu"}
+    calls = []
+
+    def smi(argv, **kw):
+        calls.append(argv)
+        return subprocess.CompletedProcess(argv, 0, "NVIDIA H100 80GB HBM3, 700.00 W\n", "")
+
+    monkeypatch.setattr(subprocess, "run", smi)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=None: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3")
+    block = tbench.device_block("cuda")
+    assert block == {"name": "NVIDIA H100 80GB HBM3", "power_limit_w": 700.0,
+                     "torch": torch.__version__, "cuda": torch.version.cuda}
+    assert calls == [["nvidia-smi", "--id=3", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]]
+
+    def missing(argv, **kw):
+        raise FileNotFoundError("nvidia-smi")
+
+    monkeypatch.setattr(subprocess, "run", missing)
+    assert tbench.device_block("cuda:0")["power_limit_w"] is None
+
+
+def test_batch_record_gates_its_members_per_s_only(tmp_path, monkeypatch, capsys):
+    rec = {"members_per_s": 60.0, "best_B": 8, "job_steps": 100, "throughput_multiplier": 2.0,
+           "sweep": {"B1": {"members_per_s": 30.0}, "B8": {"members_per_s": 60.0}}}
+    monkeypatch.setattr(trun, "bench_batch", lambda **kw: rec)
+    monkeypatch.setattr(tbench, "ROOT", str(tmp_path))
+    ref = {"metric": "diffusion3d_32_float32_teff", "value": 5.0, "device": {"name": "cpu"},
+           "extras": {"batch_ensemble": {"members_per_s": 100.0,
+                                         "sweep": {"B1": {"members_per_s": 30.0}}}}}
+    (tmp_path / "BENCH_H100_r01.json").write_text(json.dumps(ref))
+    out = tbench.main_batch(None, "cpu", 16)
+    assert json.loads(capsys.readouterr().out) == out and out["device"] == {"name": "cpu"}
+    gate = out["extras"]["perf_gate"]
+    # no headline: only the namespaced members/s are compared, and the best
+    # B's 40% drop is a regression the record carries (it is not raised)
+    assert gate["checked"] == 2 and gate["missing"] == ["headline"] and not gate["ok"]
+    assert [r["metric"] for r in gate["regressions"]] == ["batch_ensemble.members_per_s"]
+    assert out["extras"]["batch_hlo_ab"] == {"skipped": tbench.SKIPPED["batch_hlo_ab"]}
+    assert "perf_gate" not in tbench.SKIPPED

@@ -515,3 +515,127 @@ def test_cli_sweep_show_clear(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main(["sweep", "--model", "diffusion3d", "--n", "8", "--dry-run",
                  "--cache", str(tmp_path)]) == 2
+
+
+# -- seeding from the committed H100 bench records ------------------------------------
+
+
+def _bench_record(path, rng):
+    """A bench record carrying every seedable extra, under the given kernel
+    path (the port's ``cuda-fused``, JAX's ``pallas-fused``)."""
+    u = lambda: round(float(rng.uniform(500, 2500)), 2)  # noqa: E731
+    return {"metric": "diffusion3d_256_float32_teff", "value": u(), "extras": {
+        "diffusion_pallas_fused4": {"teff": u(), "t_it_ms": 0.0566, "path": path},
+        "diffusion_512_pallas_fused4": {"teff": u(), "t_it_ms": 0.42, "path": path},
+        "acoustic_256_pallas_fused6": {"teff": u(), "t_it_ms": 0.2138, "path": path},
+        "porous_256_pallas_fused": {"teff": u(), "t_it_ms": 6.23, "path": path,
+                                    "npt12_w6": {"teff": u(), "t_pt_ms": 0.5},
+                                    "npt10_w6_ragged": {"teff": u(), "t_pt_ms": 0.57}},
+    }}
+
+
+def test_seed_from_bench_gives_jax_s_entries(tmp_path):
+    rng = np.random.default_rng(17)
+    for round_n in (3, 4):
+        rec = _bench_record("cuda-fused", rng)
+        (tmp_path / f"BENCH_H100_r{round_n:02d}.json").write_text(json.dumps(rec))
+        jrec = json.loads(json.dumps(rec).replace('"cuda-fused"', '"pallas-fused"'))
+        (tmp_path / f"BENCH_r{round_n:02d}.json").write_text(json.dumps(jrec))
+    ours = tt.seed_from_bench(str(tmp_path), tt.TuneCache(str(tmp_path / "t"), fallbacks=()))
+    theirs = jt.seed_from_bench(str(tmp_path), jt.TuneCache(str(tmp_path / "j"), fallbacks=()),
+                                write=False)
+    assert len(ours) == len(theirs) == len(tt.SEEDABLE) == 5
+    # the port's bench reaches every extra through the same path as JAX's
+    assert [r["path"] for r in tt.SEEDABLE] == [r["path"] for r in jt.cache.SEEDABLE]
+    # the one-card bench topology is JAX's string too (pinned below against
+    # the grids the port's bench builds)
+    assert tt.BENCH_TOPOLOGY == jt.cache.BENCH_TOPOLOGY
+    for mine, jax_e, row in zip(ours, theirs, tt.SEEDABLE):
+        assert mine["key"] == {**jax_e["key"], "backend": "cuda"} and jax_e["key"]["backend"] == "tpu"
+        assert mine["measured"] == jax_e["measured"] and mine["modeled"] is None
+        assert mine["source"] == "seed:bench_h100_r04" and jax_e["source"] == "seed:bench_r04"
+        # JAX's 512^3 row runs its TPU tile; the port's bench runs the kernel's own pick
+        want = {k: v for k, v in jax_e["config"].items() if k != "fused_tile"}
+        assert mine["config"] == want == row["config"]
+        assert tt.admissibility_error(mine["key"], mine["config"]) is None
+    assert sorted(os.listdir(tmp_path / "t")) == sorted(tt.entry_filename(e["key"]) for e in ours)
+    # the porous rows read the t_it_ms of their own node: none (JAX's too)
+    assert [e["measured"]["t_step_s"] is None for e in ours] == [False, False, False, True, True]
+
+
+def test_cpu_records_seed_nothing(tmp_path):
+    rng = np.random.default_rng(3)
+    for n, path in ((1, "cuda-fused"), (2, "cpu-fused-plain")):
+        (tmp_path / f"BENCH_H100_r{n:02d}.json").write_text(
+            json.dumps(_bench_record(path, rng)))
+    cache = tt.TuneCache(str(tmp_path / "t"), fallbacks=())
+    # the newest round carrying an extra wins only where it ran the kernel
+    assert {e["source"] for e in tt.seed_from_bench(str(tmp_path), cache)} == {
+        "seed:bench_h100_r01"}
+    os.remove(tmp_path / "BENCH_H100_r01.json")
+    assert tt.seed_from_bench(str(tmp_path), cache, write=False) == []
+    # the TPU rounds are never read
+    (tmp_path / "BENCH_r05.json").write_text(json.dumps(_bench_record("cuda-fused", rng)))
+    assert tt.seed_from_bench(str(tmp_path), cache, write=False) == []
+
+
+def test_records_of_another_size_or_card_seed_nothing(tmp_path):
+    rng = np.random.default_rng(5)
+    h100 = {"name": "NVIDIA H100 80GB HBM3", "power_limit_w": 700.0}
+    for n, metric, device in ((1, tt.BENCH_METRIC, h100),
+                              (2, tt.BENCH_METRIC, {**h100, "power_limit_w": 500.0}),
+                              (3, "diffusion3d_64_float32_teff", h100)):
+        rec = {**_bench_record("cuda-fused", rng), "metric": metric, "device": device}
+        (tmp_path / f"BENCH_H100_r{n:02d}.json").write_text(json.dumps(rec))
+    cache = tt.TuneCache(str(tmp_path / "t"), fallbacks=())
+    # r03 (another --n) is not read; r01 is another power limit than r02, the newest
+    assert {e["source"] for e in tt.seed_from_bench(str(tmp_path), cache, write=False)} == {
+        "seed:bench_h100_r02"}
+    os.remove(tmp_path / "BENCH_H100_r02.json")
+    assert {e["source"] for e in tt.seed_from_bench(str(tmp_path), cache, write=False)} == {
+        "seed:bench_h100_r01"}
+    os.remove(tmp_path / "BENCH_H100_r01.json")
+    assert tt.seed_from_bench(str(tmp_path), cache, write=False) == []
+
+
+def test_bench_topology_is_the_grid_the_bench_builds(monkeypatch):
+    from implicitglobalgrid_tpu_torch.benchmarks import bench as tbench
+    from implicitglobalgrid_tpu_torch.benchmarks import run as trun
+    from implicitglobalgrid_tpu_torch.parallel.grid import global_grid
+
+    seen = []
+
+    def timed(step, state, chunk, reps, warmup=2):
+        seen.append((global_grid().nxyz, tt.topology_string(global_grid())))
+        return 1e-3, state, {}
+
+    monkeypatch.setattr(trun, "_time_steps", timed)
+    configs = tbench._configs(8, "cpu")
+    for name in dict.fromkeys(row["path"].split(".")[0] for row in tt.SEEDABLE):
+        configs[name]()
+    assert len(seen) == 5  # the two porous rows' configs run in one extra
+    assert {topo for _, topo in seen} == {tt.BENCH_TOPOLOGY}
+    assert [nxyz for nxyz, _ in seen] == [(8, 8, 8), (16, 16, 16), (8, 8, 8), (8, 8, 8),
+                                          (8, 8, 8)]
+
+
+def test_cli_seed_dry_run_matches_committed(tmp_path, capsys):
+    from implicitglobalgrid_tpu_torch.tuning.__main__ import main
+
+    assert main(["seed", "--dry-run", "--json", "--cache", str(tmp_path)]) == 0
+    entries = json.loads(capsys.readouterr().out)
+    assert os.listdir(tmp_path) == []  # a dry run writes nothing
+    assert len(entries) == len(tt.SEEDABLE)
+    assert all(e["source"].startswith("seed:bench_h100_r") for e in entries)
+    committed = {tt.entry_filename(doc["key"]): doc
+                 for _, doc in tt.TuneCache(tt.SEED_DIR, fallbacks=()).entries()
+                 if doc["source"].startswith("seed:bench_h100_")}
+    assert sorted(committed) == sorted(tt.entry_filename(e["key"]) for e in entries)
+    for e in entries:
+        doc = committed[tt.entry_filename(e["key"])]
+        assert {k: v for k, v in doc.items() if k != "created_unix"} == \
+            {k: v for k, v in e.items() if k != "created_unix"}
+        assert tt.admissibility_error(e["key"], e["config"]) is None
+    assert main(["seed", "--cache", str(tmp_path)]) == 0
+    assert "seeded diffusion3d [512, 512, 512]" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path)) == sorted(committed)
