@@ -39,6 +39,7 @@ from ..ops.fused_stencil import fused_diffusion_steps
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
 from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
+from ..utils import profiling as _profiling
 from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
 from . import _batched, _common, _fused
@@ -137,24 +138,27 @@ def setup(
 def _diffusion_update(params: Params):
     """Per-block T update without exchange: the Laplacian of the interior
     added to the interior, the outermost ring frozen (the JAX package's
-    padded-delta form ``T + pad(delta, 1)``).  Blocks or batches of them."""
+    padded-delta form ``T + pad(delta, 1)``).  Blocks or batches of them.
+    The update is the profiler range ``igg_diffusion_update`` while a
+    capture is live."""
     lam, dt = params.lam, params.dt
     dx, dy, dz = params.dx, params.dy, params.dz
 
     def update(T, Cp):
-        c = T[..., 1:-1, 1:-1, 1:-1]
-        lap = (
-            (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) / (dx * dx)
-            + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) / (dy * dy)
-            + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) / (dz * dz)
-        )
-        # A true division of the scalar by Cp (``scalar / tensor`` in torch
-        # is a reciprocal times the scalar, which rounds differently).
-        delta = torch.div(torch.tensor(dt * lam, dtype=T.dtype),
-                          Cp[..., 1:-1, 1:-1, 1:-1]) * lap
-        out = T.clone()
-        out[..., 1:-1, 1:-1, 1:-1] = c + delta
-        return out
+        with _profiling.scope("igg_diffusion_update"):
+            c = T[..., 1:-1, 1:-1, 1:-1]
+            lap = (
+                (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) / (dx * dx)
+                + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) / (dy * dy)
+                + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) / (dz * dz)
+            )
+            # A true division of the scalar by Cp (``scalar / tensor`` in torch
+            # is a reciprocal times the scalar, which rounds differently).
+            delta = torch.div(torch.tensor(dt * lam, dtype=T.dtype),
+                              Cp[..., 1:-1, 1:-1, 1:-1]) * lap
+            out = T.clone()
+            out[..., 1:-1, 1:-1, 1:-1] = c + delta
+            return out
 
     return update
 

@@ -44,6 +44,7 @@ from ..ops.fused_pt import fused_pt_iterations
 from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
 from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
+from ..utils import profiling as _profiling
 from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
 from . import _batched, _common, _fused
@@ -221,35 +222,37 @@ def _pt_iteration(params: Params, batch: bool = False, coalesce=None):
 
 def _temperature_update(params: Params):
     """Explicit upwind advection + diffusion of T (interior), frozen walls.
-    Blocks or batches of them."""
+    Blocks or batches of them.  The update is the profiler range
+    ``igg_temperature_update`` while a capture is live."""
     dx, dy, dz = params.dx, params.dy, params.dz
     lam = params.lam_T
     iphi = 1.0 / params.phi
     dt = params.dt
 
     def update(T, qDx, qDy, qDz):
-        c = _inn(T)
-        lap = (
-            (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) / (dx * dx)
-            + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) / (dy * dy)
-            + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) / (dz * dz)
-        )
-        # Upwind advective derivatives at interior cells from face fluxes.
-        qxm, qxp = qDx[..., 1:-2, 1:-1, 1:-1], qDx[..., 2:-1, 1:-1, 1:-1]
-        qym, qyp = qDy[..., 1:-1, 1:-2, 1:-1], qDy[..., 1:-1, 2:-1, 1:-1]
-        qzm, qzp = qDz[..., 1:-1, 1:-1, 1:-2], qDz[..., 1:-1, 1:-1, 2:-1]
-        adv = (
-            qxm.clamp_min(0.0) * ((c - T[..., :-2, 1:-1, 1:-1]) / dx)
-            + qxp.clamp_max(0.0) * ((T[..., 2:, 1:-1, 1:-1] - c) / dx)
-            + qym.clamp_min(0.0) * ((c - T[..., 1:-1, :-2, 1:-1]) / dy)
-            + qyp.clamp_max(0.0) * ((T[..., 1:-1, 2:, 1:-1] - c) / dy)
-            + qzm.clamp_min(0.0) * ((c - T[..., 1:-1, 1:-1, :-2]) / dz)
-            + qzp.clamp_max(0.0) * ((T[..., 1:-1, 1:-1, 2:] - c) / dz)
-        )
-        delta = dt * (lam * lap - iphi * adv)
-        T = T.clone()
-        _inn(T).add_(delta)
-        return T
+        with _profiling.scope("igg_temperature_update"):
+            c = _inn(T)
+            lap = (
+                (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) / (dx * dx)
+                + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) / (dy * dy)
+                + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) / (dz * dz)
+            )
+            # Upwind advective derivatives at interior cells from face fluxes.
+            qxm, qxp = qDx[..., 1:-2, 1:-1, 1:-1], qDx[..., 2:-1, 1:-1, 1:-1]
+            qym, qyp = qDy[..., 1:-1, 1:-2, 1:-1], qDy[..., 1:-1, 2:-1, 1:-1]
+            qzm, qzp = qDz[..., 1:-1, 1:-1, 1:-2], qDz[..., 1:-1, 1:-1, 2:-1]
+            adv = (
+                qxm.clamp_min(0.0) * ((c - T[..., :-2, 1:-1, 1:-1]) / dx)
+                + qxp.clamp_max(0.0) * ((T[..., 2:, 1:-1, 1:-1] - c) / dx)
+                + qym.clamp_min(0.0) * ((c - T[..., 1:-1, :-2, 1:-1]) / dy)
+                + qyp.clamp_max(0.0) * ((T[..., 1:-1, 2:, 1:-1] - c) / dy)
+                + qzm.clamp_min(0.0) * ((c - T[..., 1:-1, 1:-1, :-2]) / dz)
+                + qzp.clamp_max(0.0) * ((T[..., 1:-1, 1:-1, 2:] - c) / dz)
+            )
+            delta = dt * (lam * lap - iphi * adv)
+            T = T.clone()
+            _inn(T).add_(delta)
+            return T
 
     return update
 

@@ -52,6 +52,17 @@ in place, so a field that is a leaf requiring grad cannot be exchanged
 (torch refuses in-place writes to such a leaf): exchange
 ``update_halo(A.clone())``, or the output of an update.
 
+Instrumentation: each exchange call is one host span of the JAX package's
+name (``igg_halo_exchange``, ``igg_slab_exchange_begin`` / ``_finish``,
+`utils.tracing.trace_span`), which is also a profiler range of that name
+while a capture is live.  The `utils.telemetry` counter
+``halo.payload_bytes`` counts the bytes of every width-``w`` slab written
+into a halo (self copies and received slabs alike), computed on the host
+from the shapes, once per exchange call: the planes the grid's widths,
+overlaps, periods and staggering call for, whatever the transport packs or
+sends.  The adjoint exchange, and the exchanges a backward recomputes
+(`uncounted`), do not count.
+
 Transport checksums (``IGG_INTEGRITY=1``, `integrity.transport`): every
 exchange runs under a `TransportCollector`; every group then packs to the
 word view, singletons and self-partner hops included, and each wire buffer
@@ -62,6 +73,7 @@ the exchange and its messages are exactly the unchecked ones.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import numpy as np
@@ -71,7 +83,6 @@ import torch.distributed as dist
 from ..integrity import transport as _itransport
 from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS, PROC_NULL
-from ..utils import profiling as _profiling
 from ..utils import telemetry as _telemetry
 from ..utils import tracing as _tracing
 from ..utils.config import coalesce_env, integrity_enabled_env
@@ -82,6 +93,28 @@ _transport_flip: int | None = None
 
 #: Post-exchange hook of `update_halo` (`set_post_exchange_hook`).
 _post_exchange_hook = None
+
+#: False while a backward recomputes a forward (`uncounted`).
+_counting = True
+
+
+def _count_payload(nbytes: int) -> None:
+    """One ``halo.payload_bytes`` increment for one exchange call."""
+    if nbytes and _counting:
+        _telemetry.counter("halo.payload_bytes").inc(nbytes)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Exchanges inside this context add nothing to ``halo.payload_bytes``:
+    the forward a backward recomputes (`ops.overlap.fused_with_plain_grad`)
+    is not a second exchange of the run."""
+    global _counting
+    saved, _counting = _counting, False
+    try:
+        yield
+    finally:
+        _counting = saved
 
 
 def arm_transport_flip(proc: int) -> None:
@@ -446,14 +479,19 @@ def _write_planes(A, d: int, width: int, lo, hi, lead: int = 0) -> None:
         A.narrow(a, 0, width).copy_(lo)
 
 
-def _exchange_dim(fields, d: int, gg, width: int, lead: int, coalesce, col=None) -> None:
+def _exchange_dim(fields, d: int, gg, width: int, lead: int, coalesce, col=None) -> int:
     """The dim-``d`` exchange of ``fields``, in place; checksummed under
-    the collector ``col`` (self-partner hops included)."""
+    the collector ``col`` (self-partner hops included).  Returns the bytes
+    of the halo slabs it writes."""
     permuting, sends = [], []
+    sides = 2 if _partner_self(gg, d) else sum(
+        int(gg.neighbors[s, d]) != PROC_NULL for s in (0, 1))
+    nbytes = 0
     for A in fields:
         p = _slab_parts(A, d, gg, width, lead=lead)
         if p is None:
             continue
+        nbytes += sides * width * A.numel() // A.shape[d + lead] * A.element_size()
         if p[0] == "permute":
             permuting.append(A)
             sends.append(p[1:])
@@ -466,11 +504,12 @@ def _exchange_dim(fields, d: int, gg, width: int, lead: int, coalesce, col=None)
             # A self-partner hop sends (to-lower, to-upper) = (src_hi, src_lo).
             sends.append((p[2], p[1]))
     if not permuting:
-        return
+        return nbytes
     issue = _self_transport if col is not None and _partner_self(gg, d) else _issue_permute
     for A, (lo, hi) in zip(permuting, _permute_fields(d, gg, sends, coalesce, col=col,
                                                       issue=issue)):
         _write_planes(A, d, width, lo, hi, lead)
+    return nbytes
 
 
 def _adjoint_dim(grads, d: int, gg, width: int, lead: int, coalesce) -> None:
@@ -511,8 +550,8 @@ def _adjoint_dim(grads, d: int, gg, width: int, lead: int, coalesce) -> None:
 def _exchange_fields(fields, width: int, lead: int, coalesce, col=None) -> None:
     """Every dimension's exchange of ``fields`` in sequence, in place."""
     gg = _grid.global_grid()
-    for d in range(NDIMS):
-        _exchange_dim(fields, d, gg, width, lead, coalesce, col)
+    _count_payload(sum(_exchange_dim(fields, d, gg, width, lead, coalesce, col)
+                       for d in range(NDIMS)))
 
 
 def _zero_planes(G, a: int, width: int, lo: bool, hi: bool) -> None:
@@ -552,8 +591,7 @@ def exchange_dims(A, dims, *, width: int = 1, lead: int = 0):
     """Exchange one field along the given dimensions only, in place (the
     pipelined schedule's z exchange after the x/y halves; no autograd)."""
     gg = _grid.global_grid()
-    for d in dims:
-        _exchange_dim((A,), d, gg, width, lead, False)
+    _count_payload(sum(_exchange_dim((A,), d, gg, width, lead, False) for d in dims))
     return A
 
 
@@ -568,11 +606,10 @@ def exchange(fields, *, width: int = 1, lead: int = 0, coalesce=None) -> tuple:
     `TransportCollector` and its flags are read once at the end
     (`_check_transport_flags`).  The exchange is one ``igg_halo_exchange``
     host span (the JAX package's name), and a profiler range of that name
-    while a capture is live (`utils.profiling.scope`)."""
+    while a capture is live."""
     if _tracing._collective_delay:
         _tracing._consume_collective_delay()
-    with _tracing.trace_span("igg_halo_exchange", fields=len(fields), width=width), \
-            _profiling.scope("igg_halo_exchange"):
+    with _tracing.trace_span("igg_halo_exchange", fields=len(fields), width=width):
         if integrity_enabled_env() is not True:
             return _exchange(fields, width, lead, coalesce)
         col = _itransport.TransportCollector(flip_proc=_take_transport_flip())
@@ -662,8 +699,7 @@ def begin_slab_exchange(fields, dims, *, width: int, lead: int = 0, coalesce=Non
     ``coalesce`` as in `update_halo`.  No autograd: the schedules that call
     it carry their own (`ops.overlap.fused_with_plain_grad`).
     """
-    with _tracing.trace_span("igg_slab_exchange_begin", fields=len(fields)), \
-            _profiling.scope("igg_slab_exchange_begin"):
+    with _tracing.trace_span("igg_slab_exchange_begin", fields=len(fields)):
         return _begin_slab_exchange(fields, dims, width, lead, coalesce)
 
 
@@ -706,8 +742,7 @@ def finish_slab_exchange(fields, pends):
     they hold the same owned values.  On CUDA the current stream first waits
     for the communication stream.  Returns the fields.
     """
-    with _tracing.trace_span("igg_slab_exchange_finish", fields=len(fields)), \
-            _profiling.scope("igg_slab_exchange_finish"):
+    with _tracing.trace_span("igg_slab_exchange_finish", fields=len(fields)):
         if fields and fields[0].is_cuda:
             main = torch.cuda.current_stream(fields[0].device)
             main.wait_stream(_comm_stream(fields[0].device))
@@ -719,6 +754,9 @@ def finish_slab_exchange(fields, pends):
         for A, pend in zip(fields, pends):
             for d, width, lead, lo, hi in pend:
                 _write_planes(A, d, width, lo, hi, lead)
+        _count_payload(sum(t.numel() * t.element_size()
+                           for pend in pends for *_, lo, hi in pend
+                           for t in (lo, hi) if t is not None))
     return tuple(fields)
 
 
@@ -744,8 +782,8 @@ def update_halo_padded_faces(C, Axp, Ayp, Azp, *, width: int = 1, dims=None, coa
         raise ValueError(f"width must be >= 1 (got {width})")
     fields = (C, *unpad_faces(Axp, Ayp, Azp))
     _validate_fields(fields, gg)
-    for d in range(NDIMS) if dims is None else dims:
-        _exchange_dim(fields, d, gg, width, 0, coalesce)
+    _count_payload(sum(_exchange_dim(fields, d, gg, width, 0, coalesce)
+                       for d in (range(NDIMS) if dims is None else dims)))
     return C, Axp, Ayp, Azp
 
 

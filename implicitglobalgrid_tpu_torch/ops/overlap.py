@@ -311,7 +311,7 @@ class _PlainGrad(torch.autograd.Function):
     def backward(ctx, *grads):
         inputs = [x.detach().requires_grad_(need)
                   for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
-        with torch.enable_grad():
+        with torch.enable_grad(), _halo.uncounted():
             out = ctx.plain(*inputs)
         live = [(o, g) for o, g in zip(out, grads) if o.requires_grad]
         wrt = [x for x in inputs if x.requires_grad]
@@ -345,7 +345,8 @@ def fused_with_plain_grad(fast, plain):
     code of the same steps and exchanges.  The forward runs ``fast`` under
     `torch.no_grad` and saves only the inputs; the backward recomputes
     ``plain`` on detached copies of them and returns `torch.autograd.grad`
-    of it (rematerialization: one plain forward per backward).  Every input
+    of it (rematerialization: one plain forward per backward, whose
+    exchanges `ops.halo` does not count again: `uncounted`).  Every input
     that carries a gradient must be an argument, never a closure: what the
     functions close over is a constant to autograd.
     """

@@ -12,20 +12,29 @@ The port's copy of the JAX package's ``utils/profiling.py`` over
   capture holds exactly the window's device work.  Output is per rank:
   the Chrome trace ``profile.p<rank>/igg.p<rank>.<pid>.<ns>.trace.json``
   under ``IGG_PROFILE_DIR`` (else ``IGG_TELEMETRY_DIR``) and the capture
-  meta ``profile.p<rank>.json`` (window, host perf anchors taken after the
-  start returns, trace path, attribution).  Every failure (no directory, a
-  start, stop or export error, an unparseable trace) becomes one
-  structured ``profile.capture_failed`` event and the run goes on; a
-  window still open when the guarded loop exits (a guard trip, an injected
-  crash) is stopped by its exit path (`close_open_capture`), so the bytes
-  already captured land.
+  meta ``profile.p<rank>.json`` (window, the host perf instants of its
+  edges and of the capture's anchor, trace path, attribution).  Every
+  failure (no directory, a start, stop or export error, an unparseable
+  trace) becomes one structured ``profile.capture_failed`` event and the
+  run goes on; a window still open when the guarded loop exits (a guard
+  trip, an injected crash) is stopped by its exit path
+  (`close_open_capture`), so the bytes already captured land.
 * **Scopes.** The port opens `torch.profiler.record_function` ranges named
   as the JAX package's ``named_scope``s (`SCOPE_NAMES`: the exchanges in
-  `ops.halo`, the ring and interior passes in `models._fused`) and
-  ``igg_step[<model>]`` around each guarded-loop call, only while a capture
-  is live (`scope`: one module bool read otherwise).  The profiler turns a
-  range into ``gpu_user_annotation`` events on each CUDA stream it
-  launched work on, spanning that work.
+  `ops.halo`, the ring and interior passes in `models._fused`), the plain
+  updates ``igg_temperature_update`` (porous) and ``igg_diffusion_update``,
+  and ``igg_step[<model>]`` around each guarded-loop call, only while a
+  capture is live (`scope`: one module bool read otherwise).  A
+  `tracing.trace_span` opens a range of its own name too while a capture is
+  live, so the exchanges name their work once, as ring spans.  The
+  profiler turns a range into ``gpu_user_annotation`` events on each CUDA
+  stream it launched work on, spanning that work.  Every capture opens one
+  ``igg_capture_anchor`` range (`ANCHOR`) right after the profiler starts
+  (behind one ``igg_capture_anchor_warmup`` range, which takes the
+  session's set-up out of the anchor's duration) and takes the host
+  ``perf_counter`` instant inside it: the windowed capture's meta records
+  it as ``anchor_perf``, `profile_trace` writes it beside the trace
+  (``<trace stem>.anchor.json``).
 * **Attribution.** `device_ops` keeps the device work of a torch Chrome
   trace: the ``kernel``, ``gpu_memcpy`` and ``gpu_memset`` events
   (`DEVICE_CATEGORIES`).  An op belongs to a scope when a
@@ -37,7 +46,9 @@ The port's copy of the JAX package's ``utils/profiling.py`` over
   device, ``None`` when the capture holds no collective (every one-card
   capture).
 * **Join and diff.** `attach_device_tracks` adds each rank's device ops to
-  `tracing.merge_trace_files` output on the rank's pid; `attribution_delta`
+  `tracing.merge_trace_files` output on the rank's pid, placed by the
+  capture's anchor range (its trace ``ts`` against its ``perf_counter``
+  instant), to within the anchor's own duration; `attribution_delta`
   names the scope a cross-run regression went to.  ``python -m
   implicitglobalgrid_tpu_torch.utils.profiling attribute|diff`` is the
   command line (`main`).
@@ -62,6 +73,7 @@ from . import telemetry as _telemetry
 
 __all__ = [
     "SCOPE_NAMES",
+    "ANCHOR",
     "parse_profile_window",
     "ProfileCapture",
     "maybe_arm",
@@ -73,6 +85,7 @@ __all__ = [
     "load_trace",
     "find_trace_files",
     "device_ops",
+    "capture_anchor",
     "attribute_trace",
     "attribute_capture",
     "attribution_delta",
@@ -96,7 +109,14 @@ SCOPE_NAMES = (
     "igg_slab_exchange_begin",
     "igg_slab_exchange_finish",
     "igg_halo_exchange",
+    "igg_temperature_update",
+    "igg_diffusion_update",
 )
+
+#: The range every capture opens right after the profiler starts: its
+#: ``ts`` on the trace's clock and the host ``perf_counter`` instant taken
+#: inside it tie the two clocks together (`attach_device_tracks`).
+ANCHOR = "igg_capture_anchor"
 
 #: Chrome-trace categories of device work in a torch capture.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -216,10 +236,21 @@ class _Session:
             torch.cuda.synchronize(self.device)
 
     def start(self) -> None:
+        """Start the profiler, then open the `ANCHOR` range and take the
+        host instant inside it (``anchor_perf``)."""
         global _capturing
+        import torch
+
         self._sync()
         self._prof.start()
         _capturing = True
+        # The first range of a session pays its set-up (about 0.1 ms on
+        # the card's host, and a millisecond the first time in a process):
+        # a range before the anchor takes that out of the anchor's error.
+        with torch.profiler.record_function(ANCHOR + "_warmup"):
+            pass
+        with torch.profiler.record_function(ANCHOR):
+            self.anchor_perf = time.perf_counter()
 
     def stop(self, logdir: str, rank: int) -> tuple[str, float]:
         """Drain the device, stop, then export the Chrome trace into
@@ -308,8 +339,7 @@ class ProfileCapture:
         except Exception as e:
             self._fail("start", e)
             return
-        # anchor AFTER start returns: the profiler is live from here, so
-        # this perf sample is the instant the device track aligns to.
+        # the window's start: the profiler is live from here
         self.t_start_perf = time.perf_counter()
         self.wall_start = time.time()
         self.started = True
@@ -346,6 +376,7 @@ class ProfileCapture:
             "logdir": self.logdir,
             "t_start_perf": self.t_start_perf,
             "t_stop_perf": t_stop_perf,
+            "anchor_perf": session.anchor_perf,
             "wall_start": self.wall_start,
             "wall_stop": time.time(),
             "device": str(session.device),
@@ -525,7 +556,9 @@ def profile_trace(logdir, *, device=None, **kwargs):
     ``device``: the device traced, by default the grid's (CUDA without a
     grid); ``kwargs`` go to `torch.profiler.profile`.  The windowed capture
     (``IGG_PROFILE=steps:A-B``) needs no code change and writes the
-    per-rank meta the tooling discovers.
+    per-rank meta the tooling discovers.  Beside the trace goes
+    ``<trace stem>.anchor.json``: the host instant taken inside the
+    capture's `ANCHOR` range (``anchor_perf``) and the trace's file name.
     """
     logdir = os.fspath(logdir)
     os.makedirs(logdir, exist_ok=True)
@@ -536,7 +569,12 @@ def profile_trace(logdir, *, device=None, **kwargs):
     except BaseException:
         session.abort()
         raise
-    session.stop(logdir, _telemetry._proc_index())
+    path, _ = session.stop(logdir, _telemetry._proc_index())
+    _telemetry.atomic_write_json(
+        path.removesuffix(".trace.json") + ".anchor.json",
+        {"schema": PROFILE_SCHEMA, "anchor_perf": session.anchor_perf,
+         "trace": os.path.basename(path)},
+    )
 
 
 # -- trace parsing ------------------------------------------------------------
@@ -642,6 +680,15 @@ def device_ops(doc: dict) -> list[dict]:
             tracks.get((op["pid"], op["tid"]), ()), op["ts"], op["ts"] + op["dur"]
         )
     return ops
+
+
+def capture_anchor(doc: dict) -> tuple[float, float] | None:
+    """``(ts, dur)`` in µs of the capture's `ANCHOR` range on the trace's
+    clock, or None for a trace without one."""
+    for e in doc.get("traceEvents", []):
+        if isinstance(e, dict) and e.get("ph") == "X" and e.get("name") == ANCHOR:
+            return float(e["ts"]), float(e.get("dur", 0.0))
+    return None
 
 
 def op_kind(op: dict) -> str:
@@ -949,13 +996,16 @@ def attach_device_tracks(
     ``doc`` is `tracing.merge_trace_files` output; ``metas`` are capture
     meta files (or loaded dicts) from the same run's ranks.  Each rank's
     device ops land on its host track's pid (tids ``DEVICE_TID_BASE + k``,
-    one per device stream), aligned by anchoring the capture's first
-    device op at the host instant the profiler started (the meta's
-    ``t_start_perf``) and riding the host track's barrier offset.  That
-    anchor is accurate to the profiler's start latency, recorded per rank
-    in ``otherData.device_alignment``.  Device events carry ``args.cat``
-    (their trace category) and ``args.igg_scope``.  The result still
-    passes `tracing.validate_chrome_trace`.
+    one per device stream), placed by the capture's `ANCHOR` range: an op
+    ``d`` µs after the range's start on the trace's clock lands ``d`` µs
+    after the host instant taken inside it (the meta's ``anchor_perf``),
+    riding the host track's barrier offset.  The instant lies inside the
+    range, so the placement is exact to within the range's duration,
+    recorded per rank as ``anchor_error_us`` in
+    ``otherData.device_alignment``.  A capture without the anchor (an
+    older meta or trace) has its ops omitted, with a note.  Device events
+    carry ``args.cat`` (their trace category) and ``args.igg_scope``.  The
+    result still passes `tracing.validate_chrome_trace`.
     """
     alignment = doc.get("otherData", {}).get("clock_alignment")
     if alignment is None:
@@ -966,12 +1016,11 @@ def attach_device_tracks(
     base_us = float(alignment.get("ts_zero_offset_s", 0.0)) * 1e6
     dev_align: dict[str, Any] = {
         "note": (
-            "device tracks are aligned by anchoring each rank's first "
-            "captured device op at its host profiler-start instant "
-            "(profile.p<rank>.json t_start_perf); the anchor error is the "
-            "profiler start latency — ms-scale — ON TOP of the host "
-            "clock_alignment uncertainty, so cross-track ordering finer "
-            "than that is not trustworthy."
+            "device tracks are placed by each capture's igg_capture_anchor "
+            "range against the host instant taken inside it "
+            "(profile.p<rank>.json anchor_perf); the error is the range's "
+            "duration (per rank: anchor_error_us), ON TOP of the host "
+            "clock_alignment uncertainty."
         ),
         "per_rank": {},
     }
@@ -1021,25 +1070,29 @@ def attach_device_tracks(
                 f"re-run the capture alongside the current trace dumps."
             )
         trace_path = resolve_trace_path(meta, meta_dir)
-        ops = (
-            device_ops(load_trace(trace_path))
-            if trace_path and meta.get("t_start_perf") is not None
-            else []
-        )
-        plans.append((meta, per, trace_path, ops))
-    for meta, per, trace_path, ops in plans:
+        trace = load_trace(trace_path) if trace_path else None
+        plans.append((meta, per, trace_path,
+                      device_ops(trace) if trace else [],
+                      capture_anchor(trace) if trace else None))
+    for meta, per, trace_path, ops, anchor in plans:
         rank = meta["rank"]
         entry: dict[str, Any] = {"trace": trace_path, "n_ops": 0}
         dev_align["per_rank"][str(rank)] = entry
-        if not trace_path or meta.get("t_start_perf") is None:
+        if not trace_path:
             entry["note"] = "no device trace captured"
             continue
         if not ops:
             entry["note"] = "capture holds no device ops"
             continue
-        t0 = min(op["ts"] for op in ops)
+        if anchor is None or meta.get("anchor_perf") is None:
+            entry["note"] = (
+                f"capture holds no {ANCHOR} range or its meta no anchor_perf "
+                "(an older capture): device ops omitted"
+            )
+            continue
+        t0, entry["anchor_error_us"] = anchor
         anchor_us = (
-            (meta["t_start_perf"] + per["offset_s"]) * 1e6 - base_us
+            (meta["anchor_perf"] + per["offset_s"]) * 1e6 - base_us
         )
         tids = sorted({(op["pid"], op["tid"]) for op in ops}, key=str)
         tid_map = {t: DEVICE_TID_BASE + i for i, t in enumerate(tids)}
@@ -1066,7 +1119,7 @@ def attach_device_tracks(
                 }
             )
         entry["n_ops"] = len(ops)
-        entry["t_start_perf"] = meta["t_start_perf"]
+        entry["anchor_perf"] = meta["anchor_perf"]
         entry["window"] = meta.get("window")
     # Re-base: the validator refuses negative timestamps, and a device op
     # may align before the earliest host span.

@@ -6,8 +6,12 @@ the crash flight recorder: the port's counterpart of the JAX package's
   context manager recording ``(name, t0, dur, tags)`` into a bounded
   per-process ring buffer (``IGG_TRACE_RING``, default `RING_DEFAULT`).
   A span is host time only: it never synchronises the device, so a span
-  around a kernel launch measures the launch, not the kernel.  With
-  ``IGG_TELEMETRY=0`` (or ``IGG_TRACE_RING=0``) every call returns one
+  around a kernel launch measures the launch, not the kernel.  While a
+  `utils.profiling` capture is live, a span also opens a
+  `torch.profiler.record_function` range of its own name, whether the ring
+  records or not, so that the capture holds the span on the profiler's
+  clock and the device work launched inside it.  With ``IGG_TELEMETRY=0``
+  (or ``IGG_TRACE_RING=0``) and no capture live, every call returns one
   shared no-op singleton — no allocation, no clock reads.
 * **Merged timeline** — `dump_trace(dir)` writes this rank's spans plus its
   clock-sync anchor as ``trace.p<rank>.json``; `merge_trace_files` joins
@@ -36,8 +40,8 @@ the crash flight recorder: the port's counterpart of the JAX package's
   `utils.resilience` calls it on a guard trip, a watchdog deadline, an
   injected worker crash and an audit mismatch.
 
-Layering: imports only `config` and `telemetry` at module scope; torch and
-the grid are reached lazily.
+Layering: imports only `config`, `telemetry` and `profiling` at module
+scope; torch and the grid are reached lazily.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import time
 from typing import Any, Sequence
 
 from . import config as _config
+from . import profiling as _profiling
 from . import telemetry as _telemetry
 
 __all__ = [
@@ -275,17 +280,22 @@ class _Span:
     use records one span per enter/exit pair.  While executing it sits on
     this thread's open-span stack (see `open_spans`); a span that resolved
     a request context additionally pushes its own (child) context so
-    anything nested chains under it (`current_context`)."""
+    anything nested chains under it (`current_context`).  Under a live
+    capture it also holds a profiler range of its name (``rf``)."""
 
-    __slots__ = ("name", "tags", "t0", "ctx")
+    __slots__ = ("name", "tags", "t0", "ctx", "rf")
 
     def __init__(self, name: str, tags: dict | None,
                  ctx: dict | None = None):
         self.name = name
         self.tags = tags
         self.ctx = ctx
+        self.rf = None
 
     def __enter__(self) -> "_Span":
+        if _profiling._capturing:
+            self.rf = _profiling.scope(self.name)
+            self.rf.__enter__()
         self.t0 = time.perf_counter()
         ident = threading.get_ident()
         stack = _open_stacks.get(ident)
@@ -314,6 +324,9 @@ class _Span:
                 if not cstack:
                     _ctx_stacks.pop(ident, None)
         _ring_push(self.name, self.t0, t1 - self.t0, self.tags)
+        if self.rf is not None:
+            rf, self.rf = self.rf, None
+            rf.__exit__(*exc)
 
 
 class _NoopSpan:
@@ -337,8 +350,10 @@ def trace_span(name: str, *, parent: dict | None = None, **tags: Any):
 
     Nestable (Chrome-trace ``X`` events on one track render nesting from
     containment); tags become the span's ``args`` in a merged trace.
-    Returns the shared `NOOP_SPAN` when tracing is disabled — the
-    zero-overhead contract of the rest of the registry.
+    Returns the shared `NOOP_SPAN` when tracing is disabled and no capture
+    is live — the zero-overhead contract of the rest of the registry; under
+    a live capture a disabled span is the profiler range alone
+    (`utils.profiling.scope`).
 
     Request context: ``parent=`` (a ``{"trace_id", "span_id"}`` dict) or —
     when omitted — the ambient context (`use_context` / an enclosing
@@ -351,7 +366,7 @@ def trace_span(name: str, *, parent: dict | None = None, **tags: Any):
     as before — no ids, no extra allocation.
     """
     if not enabled():
-        return NOOP_SPAN
+        return _profiling.scope(name) if _profiling._capturing else NOOP_SPAN
     ctx = parent if parent is not None else current_context()
     if ctx is None:
         return _Span(name, tags or None)

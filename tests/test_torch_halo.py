@@ -5,7 +5,9 @@ unique value, so any misplaced plane shows.  One process: the port's grid
 against a one-device JAX grid.  Several processes: two or four port ranks
 over gloo (worker processes that never import JAX,
 `implicitglobalgrid_tpu_torch._workers`) against a JAX grid of as many
-devices, block by block.
+devices, block by block.  The ``halo.payload_bytes`` counter of one
+exchange call against the halo planes counted from the shapes, on every
+exchange path, and unmoved by a backward pass.
 """
 
 import jax
@@ -144,3 +146,98 @@ def _check_multi_process(kw, shapes, width, nprocs, tmp_path):
         for name, s, w in zip(names, shapes, want):
             block = w[tuple(slice(c[d] * s[d], (c[d] + 1) * s[d]) for d in range(3))]
             np.testing.assert_array_equal(out[name], block)
+
+
+# -- the payload counter --------------------------------------------------------
+
+PAYLOAD_CASES = {
+    # name: (local shape, field shapes, width, grid kwargs, how the exchange is called)
+    "periodic_x": ((6, 6, 6), [(6, 6, 6)], 1, dict(periodx=1), "update_halo"),
+    "periodic_xyz": ((6, 5, 7), [(6, 5, 7)], 1, dict(periodx=1, periody=1, periodz=1),
+                     "update_halo"),
+    "non_periodic": ((6, 6, 6), [(6, 6, 6)], 1, dict(), "update_halo"),
+    "staggered": ((6, 6, 6), [(6, 6, 6), (7, 6, 6), (6, 6, 7)], 1, dict(periodx=1, periodz=1),
+                  "update_halo"),
+    "width_3": ((12, 12, 11), [(12, 12, 11), (12, 13, 11)], 3,
+                dict(periody=1, periodz=1, overlapy=6, overlapz=6), "update_halo"),
+    "coalesce_off": ((8, 8, 8), [(8, 8, 8), (8, 9, 8)], 1, dict(periody=1), "coalesce_off"),
+    "split": ((9, 9, 9), [(9, 9, 9), (10, 9, 9)], 2,
+              dict(periodx=1, periody=1, overlapx=4, overlapy=4), "split"),
+    "batched": ((6, 6, 6), [(6, 6, 6), (6, 7, 6)], 1, dict(periodx=1, periody=1), "batched"),
+    "dims": ((6, 6, 6), [(6, 6, 6)], 1, dict(periodx=1, periodz=1), "dims"),
+}
+BATCH = 3
+
+
+def _payload():
+    from implicitglobalgrid_tpu_torch.utils import telemetry
+
+    return telemetry.snapshot()["counters"].get("halo.payload_bytes", 0)
+
+
+def _halo_plane_bytes(nxyz, shapes, width, kw, itemsize=8, members=1):
+    """The halo planes one exchange writes on a one-process grid: in every
+    periodic dimension where a field has a halo (shape-aware overlap >= 2),
+    ``width`` planes on each side, both written from the block itself."""
+    total = 0
+    for s in shapes:
+        for d, ax in enumerate("xyz"):
+            ol = kw.get(f"overlap{ax}", 2) + s[d] - nxyz[d]
+            if kw.get(f"period{ax}") and ol >= 2:
+                total += 2 * width * int(np.prod(s)) // s[d] * itemsize * members
+    return total
+
+
+@pytest.mark.parametrize("case", list(PAYLOAD_CASES))
+def test_payload_bytes_of_one_exchange_call_are_the_halo_planes(case):
+    from implicitglobalgrid_tpu_torch.models import _batched
+    from implicitglobalgrid_tpu_torch.ops import halo
+    from implicitglobalgrid_tpu_torch.utils import telemetry
+
+    nxyz, shapes, width, kw, how = PAYLOAD_CASES[case]
+    tigg.init_global_grid(*nxyz, quiet=True, device="cpu", **kw)
+    members = BATCH if how == "batched" else 1
+    fields = [torch.rand((members, *s) if how == "batched" else s, dtype=torch.float64)
+              for s in shapes]
+    telemetry.reset()
+    if how == "update_halo":
+        tigg.update_halo(*fields, width=width)
+    elif how == "coalesce_off":
+        tigg.update_halo(*fields, width=width, coalesce=False)
+    elif how == "split":
+        halo.finish_slab_exchange(fields, halo.begin_slab_exchange(fields, (0, 1, 2), width=width))
+    elif how == "batched":
+        _batched.update_halo(*fields, width=width)
+    else:
+        halo.exchange_dims(fields[0], (0, 2), width=width)
+    want = _halo_plane_bytes(nxyz, shapes, width, kw, members=members)
+    assert _payload() == want
+    assert (want == 0) == (case == "non_periodic")
+
+
+@pytest.mark.parametrize("path", ["update_halo", "fused_cadence"])
+def test_a_backward_pass_adds_no_payload_bytes(path):
+    """The adjoint exchange, and the plain forward a fused cadence's
+    backward recomputes, leave the counter where the forward left it."""
+    from implicitglobalgrid_tpu_torch.models import diffusion3d
+    from implicitglobalgrid_tpu_torch.utils import telemetry
+
+    if path == "update_halo":
+        tigg.init_global_grid(6, 6, 6, quiet=True, device="cpu", periodx=1, periody=1)
+        A = torch.rand((6, 6, 6), dtype=torch.float64, requires_grad=True)
+        telemetry.reset()
+        out = tigg.update_halo(A.clone())
+        loss = (out ** 2).sum()
+        want = _halo_plane_bytes((6, 6, 6), [(6, 6, 6)], 1, dict(periodx=1, periody=1))
+    else:
+        state, params = diffusion3d.setup(16, 32, 128, quiet=True, device="cpu",
+                                          dtype=torch.float32, periodz=1, overlapz=4)
+        T = state[0].clone().requires_grad_(True)
+        telemetry.reset()
+        out = diffusion3d.make_multi_step(params, 2, fused_k=2, autotune=False)(T, state[1])
+        loss = (out[0] ** 2).sum()
+        want = _halo_plane_bytes((16, 32, 128), [(16, 32, 128)], 2, dict(periodz=1, overlapz=4),
+                                 itemsize=4)
+    assert _payload() == want > 0
+    loss.backward()
+    assert _payload() == want

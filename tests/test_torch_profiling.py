@@ -17,6 +17,9 @@ package's.
   tracks; the degradations (no directory, a window past the run), the
   fire-once contract, the flight bundle's ``profile`` section, the
   command line and `igg.profile_trace`.
+* The plain updates' ranges (one a step under a CPU capture, the shared
+  null context without one), the capture's anchor range and file, and
+  `attach_device_tracks` placing a synthetic rank's ops by the anchor.
 """
 
 import gzip
@@ -423,7 +426,9 @@ def test_attach_device_tracks_of_a_device_capture(captured_run, tmp_path):
     on the rank's pid, one tid per stream, tagged with their scope."""
     logdir = tmp_path / "profile.p0"
     logdir.mkdir()
-    (logdir / "igg.p0.1.1.trace.json").write_text(json.dumps(_twin_of_the_jax_fixture()))
+    twin = _twin_of_the_jax_fixture()
+    twin["traceEvents"].append(_x("user_annotation", prof.ANCHOR, 1234, -30.0, 4.0, pid=1234))
+    (logdir / "igg.p0.1.1.trace.json").write_text(json.dumps(twin))
     meta = json.load(open(prof.find_capture_metas(captured_run["tdir"])[0]))
     meta.update(trace_path="/nonexistent/x.trace.json", logdir="/nonexistent")
     (tmp_path / "profile.p0.json").write_text(json.dumps(meta))
@@ -436,7 +441,8 @@ def test_attach_device_tracks_of_a_device_capture(captured_run, tmp_path):
     assert sorted({e["args"]["igg_scope"] for e in dev}) == [
         "glue", "igg_halo_exchange", "igg_interior_pass", "igg_ring_pass",
         "igg_slab_exchange_begin", "kernels"]
-    assert "start latency" in doc["otherData"]["device_alignment"]["note"]
+    assert "igg_capture_anchor" in doc["otherData"]["device_alignment"]["note"]
+    assert doc["otherData"]["device_alignment"]["per_rank"]["0"]["anchor_error_us"] == 4.0
 
 
 def test_close_records_last_step_and_flight_bundle(monkeypatch, tmp_path):
@@ -474,3 +480,69 @@ def test_profile_trace_alias_emits_parseable_capture(tmp_path):
     assert rec["n_device_ops"] == 0
     doc = prof.load_trace(prof.find_trace_files(logdir)[-1])
     assert "igg_ring_pass" in {e.get("name") for e in doc["traceEvents"]}
+
+
+# -- the plain updates' ranges and the capture anchor ---------------------------
+
+
+@pytest.mark.parametrize("model,scope", [("porous_convection3d", "igg_temperature_update"),
+                                         ("diffusion3d", "igg_diffusion_update")])
+def test_a_plain_step_opens_its_update_range_once_a_step(model, scope, tmp_path):
+    import importlib
+
+    mod = importlib.import_module(f"implicitglobalgrid_tpu_torch.models.{model}")
+    kw = dict(npt=2) if model == "porous_convection3d" else {}
+    state, params = mod.setup(8, 8, 8, quiet=True, device="cpu", dtype=torch.float64,
+                              periodx=1, **kw)
+    step = mod.make_multi_step(params, 3, autotune=False)
+    assert prof.scope(scope) is prof._NULL  # no capture live
+    state = step(*state)
+    with tigg.profile_trace(tmp_path, device="cpu"):
+        state = step(*state)
+    assert prof.scope(scope) is prof._NULL
+    doc = prof.load_trace(prof.find_trace_files(tmp_path)[-1])
+    names = [e.get("name") for e in doc["traceEvents"] if e.get("ph") == "X"]
+    assert names.count(scope) == 3 and names.count(prof.ANCHOR) == 1
+    assert scope in prof.SCOPE_NAMES
+    (anchor,) = [p for p in os.listdir(tmp_path) if p.endswith(".anchor.json")]
+    rec = json.load(open(tmp_path / anchor))
+    assert rec["trace"] == os.path.basename(prof.find_trace_files(tmp_path)[-1])
+    assert isinstance(rec["anchor_perf"], float)
+
+
+def test_attach_device_tracks_places_ops_by_the_anchor(tmp_path):
+    """A synthetic rank: the capture's anchor range opens at trace time
+    5000 µs (its duration 3 µs) while the host took perf instant 100.0 s
+    inside it; a device op 250 µs after the range's start lands within 3
+    µs of a host span that started at 100.000250 s."""
+    host = {
+        "schema": tracing.TRACE_SCHEMA, "rank": 0, "pid": 1000, "coords": [0, 0, 0],
+        "clock_sync": {"wall": 1.7e9, "perf": 99.0, "uncertainty_s": 1e-4, "epoch": 1,
+                       "barrier": True},
+        "spans": [{"name": "marker", "t0": 100.000250, "dur": 1e-5, "args": {}}],
+    }
+    hpath = tmp_path / tracing.trace_filename(0)
+    hpath.write_text(json.dumps(host))
+    trace = {"traceEvents": [
+        _x("user_annotation", prof.ANCHOR, 1, 5000.0, 3.0, pid=1),
+        _x("kernel", _ADD, 7, 5250.0, 20.0),
+        _x("kernel", _ADD, 7, 5400.0, 20.0),
+    ]}
+    tpath = tmp_path / "igg.p0.1.1.trace.json"
+    tpath.write_text(json.dumps(trace))
+    meta = {"schema": prof.PROFILE_SCHEMA, "rank": 0, "trace_path": str(tpath),
+            "anchor_perf": 100.0, "wall_start": 1.7e9 + 1.0, "window": [1, 2]}
+    doc = prof.attach_device_tracks(tracing.merge_trace_files([str(hpath)]), [meta])
+    assert tracing.validate_chrome_trace(doc) == []
+    xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    marker = next(e for e in xs if e["name"] == "marker")
+    dev = sorted((e for e in xs if e["pid"] == 0 and e["tid"] >= prof.DEVICE_TID_BASE),
+                 key=lambda e: e["ts"])
+    assert len(dev) == 2
+    err = doc["otherData"]["device_alignment"]["per_rank"]["0"]["anchor_error_us"]
+    assert err == 3.0
+    assert abs(dev[0]["ts"] - marker["ts"]) <= err
+    assert dev[1]["ts"] - dev[0]["ts"] == pytest.approx(150.0)
+    old = dict(meta, anchor_perf=None)
+    doc = prof.attach_device_tracks(tracing.merge_trace_files([str(hpath)]), [old])
+    assert "device ops omitted" in doc["otherData"]["device_alignment"]["per_rank"]["0"]["note"]

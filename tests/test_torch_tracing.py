@@ -11,6 +11,8 @@ package's.
   codec and sampling, request traces through the port's front door,
   `request_tree`, `critical_path`, the OTLP export (held to the JAX
   package's golden file) and the ring's overflow ledger.
+* Under a live capture a span is also a profiler range of its name, with
+  the ring on or off, and an exchange names its work once.
 * Across packages, on the same inputs: `parse_traceparent` /
   `format_traceparent`, `merge_trace_files` of the same per-rank
   documents, `request_tree` and `critical_path` of the same tree, and
@@ -799,3 +801,38 @@ def test_net_delay_arms_the_next_control_collective(monkeypatch):
     tigg.update_halo(A)
     tigg.update_halo(A)
     assert slept == [0.5]
+
+
+# -- spans under a device-timeline capture -----------------------------------------------
+
+
+def _ranges(logdir, name):
+    from implicitglobalgrid_tpu_torch.utils import profiling as prof
+
+    doc = prof.load_trace(prof.find_trace_files(logdir)[-1])
+    return [e for e in doc["traceEvents"] if e.get("ph") == "X" and e.get("name") == name]
+
+
+@pytest.mark.parametrize("telemetry", ["1", "0"])
+def test_trace_span_opens_a_range_only_under_a_capture(monkeypatch, tmp_path, telemetry):
+    monkeypatch.setenv("IGG_TELEMETRY", telemetry)
+    with tracing.trace_span("igg.outside"):
+        pass
+    if telemetry == "0":
+        assert tracing.trace_span("igg.outside") is tracing.NOOP_SPAN
+    with tigg.profile_trace(tmp_path, device="cpu"):
+        with tracing.trace_span("igg.inside", k=1):
+            torch.ones(8).add_(1)
+    assert len(_ranges(tmp_path, "igg.inside")) == 1
+    assert _ranges(tmp_path, "igg.outside") == []
+    names = [s["name"] for s in tracing.span_records()]
+    assert names == ([] if telemetry == "0" else ["igg.outside", "igg.inside"])
+
+
+def test_an_exchange_leaves_one_ring_span_and_one_range(tmp_path):
+    tigg.init_global_grid(NX, NX, NX, periodx=1, **{k: v for k, v in KW.items() if k != "dtype"})
+    A = torch.rand((NX, NX, NX), dtype=F64)
+    with tigg.profile_trace(tmp_path, device="cpu"):
+        tigg.update_halo(A)
+    assert [s["name"] for s in tracing.span_records()] == ["igg_halo_exchange"]
+    assert len(_ranges(tmp_path, "igg_halo_exchange")) == 1
