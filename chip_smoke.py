@@ -28,12 +28,14 @@ and then prints no result line):
 3. Diffusion main path, 256^3 float32 local block, periodic in x, y and z
    with overlap 8: ``diffusion3d.setup`` ->
    ``make_multi_step(nsteps=16, fused_k=4)`` (kernel launches + width-4
-   self-neighbour slab exchanges), held against the plain cadence
-   ``make_multi_step(nsteps=16, exchange_every=4)`` on the card
-   (rtol = atol = 1e-5, the JAX package's fused-vs-XLA tolerance: the
-   kernel folds the constants differently).
+   self-neighbour slab exchanges, no ``diffusion_update`` launch), held
+   against the per-step kernel's cadence ``make_multi_step(nsteps=16,
+   exchange_every=4)`` (``ops.diffusion_update``, bit for bit the plain
+   update: phase 20) on the card (rtol = atol = 1e-5, the JAX package's
+   fused-vs-XLA tolerance: the kernel folds the constants differently).
 4. Diffusion 512^3 float32, non-periodic: ``make_multi_step(nsteps=8,
-   fused_k=4)``, finite, 2 launches, matched to the plain cadence; then
+   fused_k=4)``, finite, 2 launches (none of ``diffusion_update``), matched
+   to the per-step kernel's cadence; then
    ``gather`` of the final field to rank 0 (block layout).
 5. Acoustic main path, the JAX package's benchmark config: 256^3 float32,
    periodic in z, overlap 12, ``acoustic3d.make_multi_step(24, fused_k=6)``
@@ -61,7 +63,9 @@ and then prints no result line):
    step, chunks [6, 6]); launch counts set to 0 before each and read after
    (a ring and a mid launch per group), ms per step of both schedules.
    (c) Diffusion ``make_step(hide_comm=True)`` against ``make_step``, 4
-   steps, bit for bit, and the ms per step of both.  Phases 3, 5 and 6 run
+   steps, bit for bit, from zeroed launch counts (32 ``diffusion_update``:
+   seven a hide_comm step, the six boundary windows and the interior, and
+   one a ``make_step``; no other kernel), and the ms per step of both.  Phases 3, 5 and 6 run
    the default ``pipelined`` (auto), which on one card must resolve to the
    serialized schedule (one launch per group): every x/y partner is the
    block itself, so there is no transfer to hide.
@@ -341,6 +345,19 @@ and then prints no result line):
    ms per step against 18b's hand-picked ``diffusion_pallas_fused4``; a
    miss on a key the seed layer holds fails, and the tuned chunk must
    launch ``fused_diffusion_steps``.
+20. The per-step diffusion update's kernel (``ops.diffusion_update``,
+   ``csrc/diffusion_update.cu``, which replaces XLA's fusion of the JAX
+   package's plain update and no Pallas kernel) at 512^3 float32: its
+   ``-Xptxas -v`` registers and spills per entry; the main path of the
+   benchmark's per-step cell, ``diffusion3d.make_multi_step(params, 16)``
+   on a 512^3 block periodic in x, y and z with overlap 2, from zeroed
+   launch counts: 16 launches of the kernel and none of the others, bit
+   for bit the same cadence built on ``diffusion3d._plain_update``, and
+   the ms per step of both; then one launch on random fields with the
+   model's 512^3 coefficients against ``diffusion_update_reference``
+   (bit-exact), ms per launch beside its bound (T and Cp read once, T
+   written once), and the plain version's ms.  Its record, with the main
+   path's launch count, joins the last JSON line's kernels.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -504,12 +521,13 @@ def main() -> None:
     import implicitglobalgrid_tpu_torch as igg
     from implicitglobalgrid_tpu_torch.models import acoustic3d, diffusion3d, porous_convection3d
     from implicitglobalgrid_tpu_torch.ops import _kernels
+    from implicitglobalgrid_tpu_torch.ops import diffusion_update as du
     from implicitglobalgrid_tpu_torch.ops import fused_leapfrog as fl
     from implicitglobalgrid_tpu_torch.ops import fused_pt as fp
     from implicitglobalgrid_tpu_torch.ops import fused_stencil as fs
 
     modules = {"fused_diffusion_steps": fs, "fused_leapfrog_steps": fl,
-               "fused_pt_iterations": fp}
+               "fused_pt_iterations": fp, "diffusion_update": du}
 
     def reset_counts():
         for m in modules.values():
@@ -645,9 +663,10 @@ def main() -> None:
     T_f, _ = fused(T0, Cp)
     torch.cuda.synchronize()
     diffusion_counts = counts()
-    if diffusion_counts["fused_diffusion_steps"] != nsteps // k:
+    if (diffusion_counts["fused_diffusion_steps"] != nsteps // k
+            or diffusion_counts["diffusion_update"] != 0):
         fail(f"diffusion main path launched {diffusion_counts}, expected {nsteps // k} diffusion "
-             "(the serialized schedule: auto on one card)")
+             "and no diffusion_update (the serialized schedule: auto on one card)")
     T_p, _ = plain(T0, Cp)
     torch.cuda.synchronize()
     if not torch.isfinite(T_f).all():
@@ -655,7 +674,7 @@ def main() -> None:
     torch.testing.assert_close(T_f, T_p, rtol=1e-5, atol=1e-5)
     main_err = float((T_f - T_p).abs().max())
     print(f"phase 3: diffusion 256^3 f32 periodic, 16 steps fused_k=4: launches {diffusion_counts}; "
-          f"max|fused-plain cadence| = {main_err!r} (rtol=atol=1e-5)")
+          f"max|fused-per-step kernel cadence| = {main_err!r} (rtol=atol=1e-5)")
 
     c3 = [params.dt * params.lam / (d * d) for d in (params.dx, params.dy, params.dz)]
     out = fs.fused_diffusion_steps(T0, Cp, k, *c3)
@@ -687,8 +706,8 @@ def main() -> None:
     del copy_src, copy_dst
     print(f"phase 3: fused_diffusion_steps 256^3 f32 k=4: {kernel_ms!r} ms/launch, plain version "
           f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}) {card}")
-    print(f"phase 3: fused_k=4 {step_ms!r} ms/step, T_eff {teff!r} GB/s; plain cadence "
-          f"{plain_step_ms!r} ms/step, T_eff {plain_teff!r} GB/s {card}")
+    print(f"phase 3: fused_k=4 {step_ms!r} ms/step, T_eff {teff!r} GB/s; per-step kernel "
+          f"cadence exchange_every=4 {plain_step_ms!r} ms/step, T_eff {plain_teff!r} GB/s {card}")
     print(f"phase 3: width-4 exchange of T (periodic x, y, z): {exchange_ms!r} ms (one per 4 "
           f"steps) {card}")
     print(f"phase 3: device-to-device copy of 1 GiB: {copy_gbs!r} GB/s (read+write) {card}")
@@ -704,8 +723,9 @@ def main() -> None:
     reset_counts()
     T_f, _ = fused4(T0, Cp)
     torch.cuda.synchronize()
-    if counts()["fused_diffusion_steps"] != nsteps4 // k:
-        fail(f"512^3 run launched {counts()}, expected {nsteps4 // k} diffusion")
+    if counts()["fused_diffusion_steps"] != nsteps4 // k or counts()["diffusion_update"] != 0:
+        fail(f"512^3 run launched {counts()}, expected {nsteps4 // k} diffusion and no "
+             "diffusion_update")
     if not torch.isfinite(T_f).all():
         fail("512^3 run produced non-finite values")
     T_p, _ = diffusion3d.make_multi_step(params, nsteps4)(T0, Cp)
@@ -715,7 +735,8 @@ def main() -> None:
     step4_ms = cuda_ms(torch, lambda: fused4(T0, Cp), reps=3, warmup=1) / nsteps4
     teff4 = 2 * n4**3 * 4 / (step4_ms * 1e-3) / 1e9
     print(f"phase 4: diffusion 512^3 f32 non-periodic, 8 steps fused_k=4: {nsteps4 // k} "
-          f"launches, max|fused-plain| = {err4!r}; {step4_ms!r} ms/step, T_eff {teff4!r} GB/s "
+          f"launches, max|fused-per-step kernel cadence| = {err4!r}; {step4_ms!r} ms/step, T_eff "
+          f"{teff4!r} GB/s "
           f"{card}")
     gg = igg.get_global_grid()
     G = igg.gather(T_f)
@@ -905,9 +926,11 @@ def main() -> None:
     phase18e(torch, card, early, main_step_ms["diffusion3d"])
     PHASE[0] = "19"
     phase19(reset_counts, counts, card, bench_record)
+    PHASE[0] = "20"
+    update_record = phase20(torch, igg, reset_counts, counts, card)
 
-    print(f"chip_smoke: phases 1-19 passed in {time.perf_counter() - t_start!r} s {card}")
-    print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
+    print(f"chip_smoke: phases 1-20 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(json.dumps({"kernels": [*(records[name] for name in KERNELS), update_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -1047,24 +1070,29 @@ def phase7(torch, igg, modules, reset_counts, counts, card) -> None:
     if c["fused_pt_iterations"] != 2 * 2:
         fail(f"pipelined porous launched {c}, expected 2 per chunk")
 
-    # -- 7c: hide_comm against the plain step ---------------------------------
+    # -- 7c: hide_comm against make_step -------------------------------------
     (T0, Cp), params = diffusion3d.setup(n, n, n, dtype=f32, quiet=True, periodx=1,
                                          periody=1, periodz=1, hide_comm=True, **ov(8))
     hidden = diffusion3d.make_step(params)
-    plain = diffusion3d.make_step(diffusion3d.Params(**{**params.__dict__, "hide_comm": False}))
+    serial = diffusion3d.make_step(diffusion3d.Params(**{**params.__dict__, "hide_comm": False}))
     T_h, T_p = T0, T0
+    reset_counts()
     for _ in range(4):
         T_h, _ = hidden(T_h, Cp)
-        T_p, _ = plain(T_p, Cp)
+        T_p, _ = serial(T_p, Cp)
     torch.cuda.synchronize()
+    c = counts()
     same = torch.equal(T_h, T_p)
     h_ms = cuda_ms(torch, lambda: hidden(T0, Cp), reps=10)
-    p_ms = cuda_ms(torch, lambda: plain(T0, Cp), reps=10)
+    p_ms = cuda_ms(torch, lambda: serial(T0, Cp), reps=10)
+    # hide_comm updates six boundary windows and the interior a step
     print(f"phase 7c: diffusion 256^3 f32 periodic x/y/z, 4 steps make_step(hide_comm=True) vs "
-          f"make_step: {'bit-exact' if same else 'DIFFERS'}; hide_comm {h_ms!r} ms/step, "
-          f"plain {p_ms!r} ms/step {card}")
+          f"make_step: {'bit-exact' if same else 'DIFFERS'}, launches {c} (4 x 7 + 4); "
+          f"hide_comm {h_ms!r} ms/step, make_step {p_ms!r} ms/step {card}")
     if not same:
-        fail("diffusion hide_comm step differs from the plain step")
+        fail("diffusion hide_comm step differs from make_step")
+    if c != {**{name: 0 for name in c}, "diffusion_update": 4 * 7 + 4}:
+        fail(f"7c: launched {c}, expected 32 diffusion_update and no other kernel")
     igg.finalize_global_grid()
 
 
@@ -3528,6 +3556,84 @@ def phase19(reset_counts, counts, card, record) -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 19: {time.perf_counter() - t_phase!r} s {card}")
+
+
+def phase20(torch, igg, reset_counts, counts, card, n=512, nsteps=16) -> dict:
+    """Phase 20: the per-step diffusion update's kernel at n^3 float32 (see
+    the module docstring); returns its record."""
+    from implicitglobalgrid_tpu_torch.analysis import ptxas
+    from implicitglobalgrid_tpu_torch.models import diffusion3d
+    from implicitglobalgrid_tpu_torch.ops import _kernels
+    from implicitglobalgrid_tpu_torch.ops import diffusion_update as du
+
+    _kernels.build("diffusion_update")
+    regs = ptxas.parse_report(_kernels.build_log("diffusion_update") or "")
+    if not regs:
+        fail("phase 20: no -Xptxas -v report of diffusion_update.cu")
+    for entry, m in regs.items():
+        print(f"phase 20: diffusion_update.cu {entry}: {m['registers']} registers, spills "
+              f"{m['spill_stores']} B stored / {m['spill_loads']} B loaded, "
+              f"{m['smem_bytes']} B static shared memory")
+    f32 = torch.float32
+
+    # The per_step cell's main path: one update and one update_halo a step.
+    (T0, Cp), params = diffusion3d.setup(n, n, n, periodx=1, periody=1, periodz=1, overlapx=2,
+                                         overlapy=2, overlapz=2, dtype=f32, quiet=True)
+    step = diffusion3d.make_multi_step(params, nsteps)
+    plain = diffusion3d._plain_update(params)
+
+    def plain_cadence(T, Cp):
+        for _ in range(nsteps):
+            T = igg.update_halo(plain(T, Cp))
+        return T, Cp
+
+    torch.cuda.synchronize()
+    reset_counts()
+    T_k, _ = step(T0, Cp)
+    torch.cuda.synchronize()
+    c = counts()
+    if c != {**{name: 0 for name in c}, "diffusion_update": nsteps}:
+        fail(f"phase 20: make_multi_step(params, {nsteps}) launched {c}, expected {nsteps} "
+             "diffusion_update and no other kernel")
+    T_p, _ = plain_cadence(T0, Cp)
+    torch.cuda.synchronize()
+    main_err = float((T_k - T_p).abs().max())
+    if not torch.equal(T_k, T_p):
+        fail(f"phase 20: the per-step cadence differs from it built on _plain_update: {main_err!r}")
+    del T_k, T_p
+    step_ms = cuda_ms(torch, lambda: step(T0, Cp), reps=5) / nsteps
+    plain_step_ms = cuda_ms(torch, lambda: plain_cadence(T0, Cp), reps=2, warmup=1) / nsteps
+    print(f"phase 20: diffusion {n}^3 f32 periodic x/y/z overlap 2, make_multi_step(params, "
+          f"{nsteps}): launches {c}, bit-exact with the cadence on _plain_update; "
+          f"{step_ms!r} ms/step (the plain cadence {plain_step_ms!r} ms/step) {card}")
+    igg.finalize_global_grid()
+    del T0, Cp
+
+    # One launch on random fields, with the model's coefficients at n^3.
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    T = torch.randn((n,) * 3, generator=gen, device=dev, dtype=f32)
+    Cp = 1 + torch.rand((n,) * 3, generator=gen, device=dev, dtype=f32)
+    coeffs = (params.lam, params.dt, params.dx, params.dy, params.dz)
+    err = float((du.diffusion_update(T, Cp, *coeffs)
+                 - du.diffusion_update_reference(T, Cp, *coeffs)).abs().max())
+    if err != 0.0:
+        fail(f"phase 20: diffusion_update differs from its plain version: {err!r}")
+    ms = cuda_ms(torch, lambda: du.diffusion_update(T, Cp, *coeffs), reps=50)
+    plain_ms = cuda_ms(torch, lambda: du.diffusion_update_reference(T, Cp, *coeffs), reps=5)
+    bound_ms, bound_by = bound(nbytes(T, Cp, T), 17 * (n - 2) ** 3)
+    print(f"phase 20: diffusion_update {n}^3 f32: {ms!r} ms/launch, bound {bound_ms!r} ms "
+          f"({bound_by}, {100 * bound_ms / ms:.2f}%); plain version {plain_ms!r} ms; "
+          f"max|kernel-plain| = {err!r} {card}")
+    return {
+        "name": "diffusion_update", "route": "cuda",
+        "source": "implicitglobalgrid_tpu_torch/csrc/diffusion_update.cu",
+        "replaces": "XLA's fusion of implicitglobalgrid_tpu/models/diffusion3d.py "
+                    "_diffusion_update (no Pallas kernel)",
+        "launches": c["diffusion_update"], "max_abs_err": max(err, main_err), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ptxas": regs,
+    }
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ implicit global grid:
     T     += dt * dT/dt                  (explicit Euler, interior points only)
 
 Each process advances its own local block; `update_halo` refreshes the
-overlap.  ``make_multi_step(fused_k=k)`` runs ``k`` steps per memory pass in
-the hand-written CUDA kernel (`ops.fused_stencil`), then exchanges a
+overlap.  The per-step update is one pass of a hand-written CUDA kernel
+(`ops.diffusion_update`).  ``make_multi_step(fused_k=k)`` runs ``k`` steps
+per memory pass in another (`ops.fused_stencil`), then exchanges a
 width-``k`` slab on a deep-halo grid (``overlap >= 2k``); on a grid that
 exchanges in x or y with another block the groups run on the pipelined
 schedule (`models._fused`).  ``hide_comm=True`` overlaps the per-step exchange with
@@ -34,10 +35,10 @@ from typing import Any
 
 import torch
 
-from ..ops import fused_stencil
+from ..ops import diffusion_update, fused_stencil
 from ..ops.fused_stencil import fused_diffusion_steps
-from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
-from ..ops.overlap import overlapped
+from ..ops.halo import dim_has_halo_activity, needs_grad, require_deep_halo, update_halo
+from ..ops.overlap import fused_with_plain_grad, overlapped
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils import profiling as _profiling
 from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
@@ -135,30 +136,43 @@ def setup(
     return ((ic_scale * t).to(dtype), cp.to(dtype)), params
 
 
+def _plain_update(params: Params):
+    """The plain PyTorch update (`ops.diffusion_update.diffusion_update_reference`)
+    inside the profiler range ``igg_diffusion_update``: what the fused
+    cadence's backward recomputes."""
+    coeffs = (params.lam, params.dt, params.dx, params.dy, params.dz)
+
+    def plain(T, Cp):
+        with _profiling.scope("igg_diffusion_update"):
+            return diffusion_update.diffusion_update_reference(T, Cp, *coeffs)
+
+    return plain
+
+
 def _diffusion_update(params: Params):
     """Per-block T update without exchange: the Laplacian of the interior
     added to the interior, the outermost ring frozen (the JAX package's
     padded-delta form ``T + pad(delta, 1)``).  Blocks or batches of them.
-    The update is the profiler range ``igg_diffusion_update`` while a
-    capture is live."""
-    lam, dt = params.lam, params.dt
-    dx, dy, dz = params.dx, params.dy, params.dz
+
+    The update is `ops.diffusion_update.diffusion_update` (one pass of the
+    CUDA kernel on the card, the plain version on the CPU); under autograd
+    the kernel runs in the forward and the plain version in the backward
+    (`ops.overlap.fused_with_plain_grad`).  The update is the profiler range
+    ``igg_diffusion_update`` while a capture is live."""
+    coeffs = (params.lam, params.dt, params.dx, params.dy, params.dz)
+    plain = _plain_update(params)
+
+    def fast(T, Cp):
+        return diffusion_update.diffusion_update(T, Cp, *coeffs)
+
+    with_grad = fused_with_plain_grad(lambda T, Cp: (fast(T, Cp),),
+                                      lambda T, Cp: (plain(T, Cp),))
 
     def update(T, Cp):
         with _profiling.scope("igg_diffusion_update"):
-            c = T[..., 1:-1, 1:-1, 1:-1]
-            lap = (
-                (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) / (dx * dx)
-                + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) / (dy * dy)
-                + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) / (dz * dz)
-            )
-            # A true division of the scalar by Cp (``scalar / tensor`` in torch
-            # is a reciprocal times the scalar, which rounds differently).
-            delta = torch.div(torch.tensor(dt * lam, dtype=T.dtype),
-                              Cp[..., 1:-1, 1:-1, 1:-1]) * lap
-            out = T.clone()
-            out[..., 1:-1, 1:-1, 1:-1] = c + delta
-            return out
+            if needs_grad((T, Cp)):
+                return with_grad(T, Cp)[0]
+            return fast(T, Cp)
 
     return update
 
@@ -304,10 +318,12 @@ def make_multi_step(
             batch=batch,
         )
 
+        plain = _plain_update(params)
+
         def plain_steps(ki, c, aux):
             T = c[0]
             for _ in range(ki):
-                T = update(T, aux[0])
+                T = plain(T, aux[0])
             return (T,)
 
         def fused_multi_step(T, Cp):
