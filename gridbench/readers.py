@@ -10,8 +10,6 @@ import math
 #: tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-#: the program's hand-written CUDA kernels, by the name the profiler gives
-FUSED_KERNELS = ("fused_diffusion_kernel", "fused_pt_kernel", "fused_leapfrog_kernel")
 #: the program's exchange scopes (``utils/profiling.SCOPE_NAMES``)
 EXCHANGE_SCOPES = ("igg_halo_exchange", "igg_slab_exchange_begin", "igg_slab_exchange_finish")
 ITEMSIZE = {"float32": 4, "float64": 8}
@@ -20,12 +18,6 @@ ITEMSIZE = {"float32": 4, "float64": 8}
 def op_seconds(summary: dict, name: str) -> float:
     """Device seconds of the operations whose name holds ``name``."""
     return sum(sec for op, (_, sec) in summary["ops"].items() if name in op)
-
-
-def unfused_seconds(summary: dict) -> float:
-    """Device seconds outside the program's scopes and its fused kernels."""
-    return sum(sec for op, sec in summary["unscoped"].items()
-               if not any(k in op for k in FUSED_KERNELS))
 
 
 def exchange_seconds(summary: dict) -> float:

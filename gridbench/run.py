@@ -64,7 +64,7 @@ def run_window(cfg, traf, args, device, wrap_call=None) -> dict:
 
     torch.set_num_threads(2)
     w = Window(cfg, traf, args.seed, device, trace_on=bool(args.trace), wrap_call=wrap_call)
-    out = w.run(spec.window_calls(cfg, traf, args.seconds))
+    out = w.run(spec.window_calls(cfg, traf, args.seconds, trace=bool(args.trace)))
     out["checks"] = w.checks()
     return out
 

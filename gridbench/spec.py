@@ -76,6 +76,12 @@ def steps_per_call(cfg: dict, traf: dict) -> int:
     return int(_resolved(cfg, "steps_per_call", traf["steps_per_call"]))
 
 
+def queued_calls(cfg: dict, traf: dict) -> int:
+    """How many calls the host keeps enqueued ahead of the card: the
+    traffic's ``queued_calls``, or one."""
+    return int(traf.get("queued_calls", 1))
+
+
 def options(cfg: dict, traf: dict) -> dict:
     """The keyword options of the model's ``make_multi_step`` that the
     traffic names (``traffic["options"]``)."""
@@ -89,8 +95,19 @@ def nominal_ms_per_step(cfg: dict, traf: dict) -> float:
     return float(own[cfg["name"]] if cfg["name"] in own else cfg["nominal_ms_per_step"][traf["name"]])
 
 
-def window_calls(cfg: dict, traf: dict, seconds: float) -> int:
+#: the most calls a traced window times: the reduction reads the profiler's
+#: Chrome trace of the window in one piece, and a window of many short calls
+#: would make it many times larger.  The profiler's host work grows with the
+#: trace, so where the host paces the card (the per-step cell) the idle share
+#: and the step's share of the peak depend on this length: 2048 calls keep
+#: them near the traced window they were first read at (2151 calls).
+TRACED_CALLS = 2048
+
+
+def window_calls(cfg: dict, traf: dict, seconds: float, trace: bool = False) -> int:
     """A fixed number of calls, from the run's length and the nominal time
-    per step: every seed gets the same work."""
+    per step: every seed gets the same work.  A traced window times at most
+    ``TRACED_CALLS`` of them."""
     ms = nominal_ms_per_step(cfg, traf) * steps_per_call(cfg, traf)
-    return max(2, int(round(seconds * 1000.0 / ms)))
+    calls = max(2, int(round(seconds * 1000.0 / ms)))
+    return min(calls, TRACED_CALLS) if trace else calls

@@ -10,31 +10,36 @@ import torch
 
 from gridbench import run, spec
 
-#: per configuration, a block small enough for a CPU test (the overlaps and
-#: kernel depths stay the configuration's)
-BLOCKS = {"diffusion3d-512": [32, 30, 24], "porous3d-256": [32, 30, 28]}
-
-
-def cell(name: str, block=None):
-    """``(bench, cell, cfg, traf)`` of a cell, its configuration cut to a
-    small block that one run of a few calls covers."""
+def cell(name: str):
+    """``(bench, cell, cfg, traf)`` of a cell, its configuration cut to its
+    ``cpu_block``, a block that one run of a few calls covers on the CPU
+    (the overlaps and kernel depths stay the configuration's)."""
     bench = spec.load_benchmark(spec.HERE.parent)
     c = spec.workload(bench, name)
     cfg = copy.deepcopy(spec.config(c["config"]))
     traf = copy.deepcopy(spec.traffic(c["traffic"]))
-    cfg["grid"]["block"] = list(block or BLOCKS[c["config"]])
-    cfg["nominal_ms_per_step"] = {k: 1.0 for k in cfg["nominal_ms_per_step"]}
+    cfg["grid"]["block"] = list(cfg["cpu_block"])
+    cfg["nominal_ms_per_step"] = {traf["name"]: 1.0}
+    traf.pop("nominal_ms_per_step", None)
     return bench, c, cfg, traf
+
+
+def faults(name: str) -> list[str]:
+    """The faults a cell can have: one rank exchanges halos only with
+    itself, so only where the cell's grid has a periodic dimension."""
+    _, _, cfg, traf = cell(name)
+    periodic = any(spec.grid_of(cfg, traf)["periods"])
+    return ["unchanged", "altered", "exchange"] if periodic else ["unchanged", "altered"]
 
 
 def args(seed=2**31 + 7, seconds=0.06, trace=0):
     return SimpleNamespace(seed=seed, seconds=seconds, trace=trace)
 
 
-def one_run(name: str, fault=None, seed=2**31 + 7, **kw):
+def one_run(name: str, fault=None, seed=2**31 + 7):
     """One whole CPU run of a cell, with ``fault`` planted; the result line
     the benchmark would print, and the window's record."""
-    bench, c, cfg, traf = cell(name, **kw)
+    bench, c, cfg, traf = cell(name)
     a = args(seed)
     with planted(fault) as wrap:
         out = run.run_window(cfg, traf, a, torch.device("cpu"), wrap_call=wrap)
@@ -44,9 +49,9 @@ def one_run(name: str, fault=None, seed=2**31 + 7, **kw):
 
 class planted:
     """A fault under the timed path: ``unchanged`` (the call returns its
-    state as it came), ``altered`` (one value of T changed where the call
-    produces it), ``exchange`` (no halo exchange writes what it received,
-    self copies included)."""
+    state as it came), ``altered`` (one value of the state's first field
+    changed where the call produces it), ``exchange`` (no halo exchange
+    writes what it received, self copies included)."""
 
     def __init__(self, fault):
         self.fault = fault

@@ -14,10 +14,7 @@ from gridbench.window import Window
 
 ONE_GPU = [w["name"] for w in spec.load_benchmark(spec.HERE.parent)["workloads"]
            if w["chips"] == 1]
-#: a fault the cell can have: the exchange exists where some dimension is
-#: periodic on one rank
-FAULTS = [(c, f) for c in ONE_GPU for f in ("unchanged", "altered", "exchange")
-          if f != "exchange" or c != "diffusion3d-512.fused"]
+FAULTS = [(c, f) for c in ONE_GPU for f in small.faults(c)]
 
 
 @pytest.mark.parametrize("name", ONE_GPU)

@@ -49,7 +49,7 @@ def test_a_metric_reader_that_loads_jax_leaves_no_result(monkeypatch, capsys):
     """The line of a traced run is built, every reader run, before the run
     looks for the banned modules and prints."""
     bench, c, cfg, traf = small.cell("diffusion3d-512.fused")
-    summary = {"ops": {"k": [1, 1e-3]}, "unscoped": {}, "scoped_s": {}, "busy_s": 1e-3,
+    summary = {"ops": {"k": [1, 1e-3]}, "scoped_s": {}, "busy_s": 1e-3,
                "window_s": 1e-3, "idle_gaps": {}}
     out = {"calls": 2, "steps": 32, "total_ms": 12.0, "times_ms": [6.0, 6.0], "trace": summary,
            "checks": {"start": 0.0, "sample": 0.0}}

@@ -33,7 +33,7 @@ def _fresh_counters():
 
 
 def _summary(scoped=None):
-    return {"ops": {}, "unscoped": {}, "scoped_s": dict(scoped or {}), "busy_s": 1.0,
+    return {"ops": {}, "scoped_s": dict(scoped or {}), "busy_s": 1.0,
             "window_s": 1.0, "idle_gaps": {}}
 
 

@@ -35,7 +35,7 @@ def test_roofline_bytes_count_each_field_once():
     n = 512 ** 3
     cfg = spec.config("diffusion3d-512")
     summary = {"ops": {"void fused_diffusion_kernel<float, 4>(...)": [4, 4 * 1.6e-3]},
-               "unscoped": {}, "scoped_s": {}, "busy_s": 1.0, "window_s": 1.0, "idle_gaps": {}}
+               "scoped_s": {}, "busy_s": 1.0, "window_s": 1.0, "idle_gaps": {}}
     ctx = {"config": cfg, "window": _window([6.0], 16, summary)}
     least = 4 * 3 * n * 4 / readers.HBM_BYTES_PER_S
     got = spec.metric("fused_diffusion_roofline").read(ctx)
@@ -50,7 +50,7 @@ def test_pt_roofline_counts_the_kernel_chunks_of_a_step():
     cfg = spec.config("porous3d-256")
     n = 256
     faces = 3 * (n + 1) * n * n
-    summary = {"ops": {"fused_pt_kernel<float, false>": [2, 2 * 1.62e-3]}, "unscoped": {},
+    summary = {"ops": {"fused_pt_kernel<float, false>": [2, 2 * 1.62e-3]},
                "scoped_s": {}, "busy_s": 1.0, "window_s": 1.0, "idle_gaps": {}}
     ctx = {"config": cfg, "window": _window([50.0], 1, summary)}
     least = 2 * (3 * n ** 3 + 2 * faces) * 4 / readers.HBM_BYTES_PER_S
@@ -71,7 +71,7 @@ def test_step_mfu_counts_the_steps_of_the_window_over_the_global_grid(cfg_name, 
 
 
 def test_a_reader_with_nothing_to_read_returns_nothing():
-    summary = {"ops": {}, "unscoped": {}, "scoped_s": {}, "busy_s": 1.0, "window_s": 1.0,
+    summary = {"ops": {}, "scoped_s": {}, "busy_s": 1.0, "window_s": 1.0,
                "idle_gaps": {}}
     ctx = {"config": spec.config("diffusion3d-512"), "window": _window([6.0], 16, summary)}
     assert spec.metric("fused_diffusion_roofline").read(ctx) is None
@@ -98,7 +98,6 @@ def test_trace_summary_busy_idle_scopes_and_gaps():
     assert s["window_s"] == pytest.approx(100e-6)
     assert s["busy_s"] == pytest.approx(45e-6)
     assert s["scoped_s"] == {"igg_halo_exchange": pytest.approx(5e-6)}
-    assert s["unscoped"]["add_kernel"] == pytest.approx(30e-6)
     assert s["ops"]["add_kernel"][0] == 2
     assert s["idle_gaps"]["host_idle"] == pytest.approx((10 + 15) * 1e-6)
     assert s["idle_gaps"]["cudaLaunchKernel"] == pytest.approx(30e-6)

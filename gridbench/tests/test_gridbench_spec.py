@@ -6,10 +6,12 @@ from __future__ import annotations
 
 import json
 import shutil
+from pathlib import Path
 
 import pytest
 
 from gridbench import spec
+from gridbench.tests import small
 
 ROOT = spec.HERE.parent
 BENCH = spec.load_benchmark(ROOT)
@@ -72,16 +74,27 @@ def test_every_configuration_file_is_found_by_name(c):
     assert any(w["config"] == c["name"] for w in BENCH["workloads"])
 
 
-@pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
-def test_every_cell_finds_its_files_and_reports_what_the_contract_asks(w):
+@pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])
+def test_every_configuration_names_its_cpu_block(c):
+    block = spec.config(c["name"])["cpu_block"]
+    assert len(block) == 3 and all(type(n) is int and n > 0 for n in block), block
+
+
+def _cell_is_complete(bench, w):
     assert w["name"] == f"{w['config']}.{w['traffic']}"
     assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     cfg, traf = spec.config(w["config"]), spec.traffic(w["traffic"])
     assert traf["name"] == w["traffic"]
     assert spec.nominal_ms_per_step(cfg, traf) > 0
-    e2e = [m["name"] for m in BENCH["end_to_end"] if spec.applies(m, w["name"])]
+    assert spec.queued_calls(cfg, traf) >= 1
+    e2e = [m["name"] for m in bench["end_to_end"] if spec.applies(m, w["name"])]
     assert "setup_s" in e2e and len(e2e) >= 2
-    assert any(spec.applies(m, w["name"]) for m in BENCH["per_layer"])
+    assert any(spec.applies(m, w["name"]) for m in bench["per_layer"])
+
+
+@pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
+def test_every_cell_finds_its_files_and_reports_what_the_contract_asks(w):
+    _cell_is_complete(BENCH, w)
 
 
 @pytest.mark.parametrize("m", BENCH["per_layer"], ids=lambda m: m["name"])
@@ -102,10 +115,22 @@ def test_every_file_under_the_benchmark_folders_is_named():
     assert used <= files
 
 
-def test_a_new_cell_configuration_traffic_and_metric_are_files_and_entries(tmp_path,
-                                                                           monkeypatch):
+def _copy(tmp_path):
+    """The benchmark in a tree of its own: BENCHMARK.json and ``gridbench/``
+    without its tests, which run from where they are on ``spec.HERE``."""
     here = tmp_path / "gridbench"
     shutil.copytree(spec.HERE, here, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    return here
+
+
+def _files(root):
+    return {p.relative_to(root): p.read_bytes() for p in root.rglob("*") if p.is_file()}
+
+
+def test_a_new_cell_configuration_traffic_and_metric_are_files_and_entries(tmp_path,
+                                                                           monkeypatch):
+    here = _copy(tmp_path)
     cfg = spec.config("diffusion3d-512")
     cfg["name"] = "diffusion3d-320"
     cfg["grid"]["block"] = [320, 320, 320]
@@ -128,6 +153,42 @@ def test_a_new_cell_configuration_traffic_and_metric_are_files_and_entries(tmp_p
     assert spec.metric("calls").read({"window": {"calls": 5}}) == 5.0
     assert spec.window_calls(c, spec.traffic("fused"), 20) == round(20e3 / (0.2 * 16))
     assert spec.window_calls(spec.config("diffusion3d-512"), t, 20) == round(20e3 / (0.45 * 8))
+
+
+@pytest.mark.parametrize("fault", [None, "exchange"])
+def test_a_new_configuration_runs_and_fails_as_a_cell_from_its_files_alone(tmp_path,
+                                                                          monkeypatch, fault):
+    """A configuration added as its file and entries, with no other file of
+    the benchmark or of its tests edited: its cell passes the checks every
+    cell passes, a sound CPU run of it is correct, and the exchange left out
+    (its grid is periodic in y) makes it not correct."""
+    here = _copy(tmp_path)
+    before = _files(tmp_path)
+    cfg = spec.config("porous3d-256")
+    cfg.update(name="porous3d-240", cpu_block=[30, 32, 28])
+    cfg["grid"]["block"] = [240, 240, 240]
+    (here / "configs" / "porous3d-240.json").write_text(json.dumps(cfg))
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    entry = next(c for c in bench["configs"] if c["name"] == "porous3d-256")
+    bench["configs"].append({**entry, "name": "porous3d-240",
+                             "file": "gridbench/configs/porous3d-240.json"})
+    cell = {"name": "porous3d-240.fused", "config": "porous3d-240", "traffic": "fused",
+            "chips": 1, "why": "240^3, the porous cell's mix at another block"}
+    bench["workloads"].append(cell)
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("step_ms", "chunk_ms_p95", "exchange_mib_per_step"):
+            m["workloads"].append(cell["name"])
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench, indent=2))
+    after = _files(tmp_path)
+    changed = {p for p in before.keys() | after.keys() if before.get(p) != after.get(p)}
+    assert changed == {Path("BENCHMARK.json"), Path("gridbench/configs/porous3d-240.json")}
+
+    monkeypatch.setattr(spec, "HERE", here)
+    _cell_is_complete(bench, cell)
+    assert small.cell(cell["name"])[2]["grid"]["block"] == [30, 32, 28]
+    assert "exchange" in small.faults(cell["name"])
+    line, _ = small.one_run(cell["name"], fault=fault)
+    assert line["correct"] is (fault is None), line["checks"]
 
 
 def test_the_program_takes_the_traffic_options(monkeypatch):

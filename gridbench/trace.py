@@ -50,7 +50,7 @@ def _union(iv):
 
 def summarize(events: list[dict], top: int = 10) -> dict:
     """``{window_s, busy_s, ops: {name: [count, s]}, scoped_s: {scope: s},
-    unscoped: {name: s}, idle_gaps: {host name: s}}`` of one window."""
+    idle_gaps: {host name: s}}`` of one window."""
     marks = [e for e in events if e.get("name") == WINDOW and e.get("cat") in HOST]
     if not marks:
         raise RuntimeError(f"the trace holds no {WINDOW} range")
@@ -73,7 +73,6 @@ def summarize(events: list[dict], top: int = 10) -> dict:
     starts = {k: [a for a, _, _ in v] for k, v in ann.items()}
     ops = defaultdict(lambda: [0, 0.0])
     scoped = defaultdict(float)
-    unscoped = defaultdict(float)
     for e in dev:
         a, dur = float(e["ts"]), float(e.get("dur", 0))
         name = str(e.get("name", "?"))
@@ -89,8 +88,6 @@ def summarize(events: list[dict], top: int = 10) -> dict:
                     break
         if scope:
             scoped[scope] += dur * 1e-6
-        else:
-            unscoped[name] += dur * 1e-6
 
     # idle gaps, named by what the host was doing
     host = sorted(
@@ -121,7 +118,6 @@ def summarize(events: list[dict], top: int = 10) -> dict:
         "busy_s": sum(b - a for a, b in busy) * 1e-6,
         "ops": {k: v for k, v in ops.items()},
         "scoped_s": dict(scoped),
-        "unscoped": dict(unscoped),
         "idle_gaps": dict(sorted(idle.items(), key=lambda kv: -kv[1])[:top]),
     }
 

@@ -8,9 +8,11 @@ again for the window.  The window times every call with CUDA events, each
 from the end of the one before.  It keeps device copies of the first call's
 output (its input is the benchmark's) and of one call drawn from the seed,
 with that call's input; after the window they go to the host, and the
-program's state is freed.  The host checks in one call behind: before it
-enqueues a call it waits for the end of the call two before, so the card
-always has the next call queued and the host never runs further ahead.
+program's state is freed.  The host keeps the traffic's ``queued_calls``
+calls enqueued ahead of the card (one unless it says more): before it
+enqueues a call it waits for the end of the call that many and one before,
+so the card always has the next call queued and the host never runs further
+ahead.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ class Window:
         self.wrap_call = wrap_call  # tests plant faults here
         self.ref = spec.reference(cfg["program"]["module"])
         self.spc = spec.steps_per_call(cfg, traf)
+        self.queued = spec.queued_calls(cfg, traf)
         self.layout = Layout.of(spec.grid_of(cfg, traf))
         self.kept = None
 
@@ -103,8 +106,8 @@ class Window:
             with (torch.profiler.record_function(trace.WINDOW) if tmp else contextlib.nullcontext()):
                 timer.mark(0)
                 for c in range(calls):
-                    if c >= 2:
-                        timer.wait(c - 1)  # the host checks in one call behind
+                    if c > self.queued:
+                        timer.wait(c - self.queued)  # the end of call c - queued - 1
                     if c == sample:
                         copy("sample_in", state)
                     state = call(state)
