@@ -358,6 +358,20 @@ and then prints no result line):
    (bit-exact), ms per launch beside its bound (T and Cp read once, T
    written once), and the plain version's ms.  Its record, with the main
    path's launch count, joins the last JSON line's kernels.
+21. The leapfrog kernel at the 512^3 acoustic benchmark cell's own path
+   (512 launch blocks, about four waves, against 128 at 256^3): the
+   kernel's tile, launch grid, shared memory and resident blocks per SM at
+   512^3 float32 and k = 6; ``acoustic3d.setup(512, 512, 512)`` periodic
+   in z with overlap 12, seeded noise on every field (P 1, the velocities
+   0.1, as the cell's inputs carry), ``make_multi_step(params, 24,
+   fused_k=6, autotune=False)`` from zeroed launch counts: 4 launches of
+   ``fused_leapfrog_steps`` and none of the others, against the
+   ``exchange_every=6`` cadence (rtol = atol = 2e-5, as phase 5); then one
+   launch on the same 512^3 inputs with the model's coefficients against
+   ``fused_leapfrog_steps_reference``, bit-exact, boundary faces frozen
+   and P moved on the boundary; ms per launch beside its bound, the plain
+   version's ms and the main path's ms per step.  Its record joins the
+   last JSON line's kernels.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -928,9 +942,12 @@ def main() -> None:
     phase19(reset_counts, counts, card, bench_record)
     PHASE[0] = "20"
     update_record = phase20(torch, igg, reset_counts, counts, card)
+    PHASE[0] = "21"
+    leapfrog512_record = phase21(torch, igg, reset_counts, counts, card)
 
-    print(f"chip_smoke: phases 1-20 passed in {time.perf_counter() - t_start!r} s {card}")
-    print(json.dumps({"kernels": [*(records[name] for name in KERNELS), update_record]}))
+    print(f"chip_smoke: phases 1-21 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(json.dumps({"kernels": [*(records[name] for name in KERNELS), update_record,
+                                  leapfrog512_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -3633,6 +3650,82 @@ def phase20(torch, igg, reset_counts, counts, card, n=512, nsteps=16) -> dict:
         "launches": c["diffusion_update"], "max_abs_err": max(err, main_err), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "ptxas": regs,
+    }
+
+
+def phase21(torch, igg, reset_counts, counts, card, n=512, nsteps=24, k=6) -> dict:
+    """Phase 21: the leapfrog kernel on the acoustic cell's own path at n^3
+    float32 (see the module docstring); returns its record there."""
+    from implicitglobalgrid_tpu_torch.models import acoustic3d
+    from implicitglobalgrid_tpu_torch.ops import fused_leapfrog as fl
+
+    f32 = torch.float32
+    shape = (n, n, n)
+    tile = fl.tile_for(shape, k, 4)
+    blocks = fl.resident_blocks("fused_leapfrog", shape, k, 4)
+    print(f"phase 21: fused_leapfrog_steps {n}^3 f32 k={k}: tile (bx, by, bz) = {tile}, grid "
+          f"{fl.grid(shape, tile)}, {fl.window_bytes(shape, k, tile, 4)} B shared memory per "
+          f"block, {blocks} resident blocks per SM "
+          f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs) {card}")
+    if blocks < 1:
+        fail(f"phase 21: no block of fused_leapfrog fits an SM at {n}^3 k={k} tile {tile}")
+
+    ov = dict(overlapx=12, overlapy=12, overlapz=12)
+    state, params = acoustic3d.setup(n, n, n, periodz=1, dtype=f32, quiet=True, **ov)
+    gen = torch.Generator(device=state[0].device).manual_seed(21)
+    state = tuple(a + s * torch.randn(a.shape, generator=gen, device=a.device, dtype=f32)
+                  for a, s in zip(state, (1.0, 0.1, 0.1, 0.1)))
+    step = acoustic3d.make_multi_step(params, nsteps, fused_k=k, autotune=False)
+    plain = acoustic3d.make_multi_step(params, nsteps, exchange_every=k, autotune=False)
+    step(*state)  # warm-up (allocator)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = step(*state)
+    torch.cuda.synchronize()
+    c = counts()
+    if c != {**{name: 0 for name in c}, "fused_leapfrog_steps": nsteps // k}:
+        fail(f"phase 21: make_multi_step(params, {nsteps}, fused_k={k}) launched {c}, expected "
+             f"{nsteps // k} fused_leapfrog_steps and no other kernel")
+    want = plain(*state)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("P", "Vx", "Vy", "Vz"), got, want):
+        if not torch.isfinite(g).all():
+            fail(f"phase 21: the acoustic main path produced non-finite {name}")
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5, msg=lambda m: f"{name}: {m}")
+    main_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want
+    step_ms = cuda_ms(torch, lambda: step(*state), reps=3) / nsteps
+    print(f"phase 21: acoustic {n}^3 f32 periodic z overlap 12, noisy fields, make_multi_step("
+          f"params, {nsteps}, fused_k={k}): launches {c}; max|fused-plain cadence| = "
+          f"{main_err!r} (rtol=atol=2e-5); {step_ms!r} ms/step {card}")
+
+    h = (params.dx, params.dy, params.dz)
+    co = (*(params.dt / params.rho / d for d in h), params.dt * params.K, *(1.0 / d for d in h))
+    out = fl.fused_leapfrog_steps(*state, k, *co)
+    ref = fl.fused_leapfrog_steps_reference(*state, k, *co)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    checks = {"faces bit-exact": all(ring_equal(torch, o, a) for o, a in zip(out[1:], state[1:])),
+              "P moved on the boundary": boundary_moved(torch, out[0], state[0])}
+    if err != 0.0 or not all(checks.values()):
+        fail(f"phase 21: fused_leapfrog_steps at {n}^3 disagrees with its plain version: "
+             f"{err!r}, {checks}")
+    del out, ref
+    ms = cuda_ms(torch, lambda: fl.fused_leapfrog_steps(*state, k, *co), reps=10)
+    plain_ms = cuda_ms(torch, lambda: fl.fused_leapfrog_steps_reference(*state, k, *co), reps=2,
+                       warmup=1)
+    bound_ms, bound_by = bound(2 * nbytes(*state),
+                               k * n**3 * FLOPS_PER_CELL_STEP["fused_leapfrog_steps"])
+    print(f"phase 21: fused_leapfrog_steps {n}^3 f32 k={k}: {ms!r} ms/launch, bound {bound_ms!r} "
+          f"ms ({bound_by}, {100 * bound_ms / ms:.2f}%); plain version {plain_ms!r} ms; "
+          f"max|kernel-plain| = {err!r} (tolerance 0: bit-exact), {checks} {card}")
+    igg.finalize_global_grid()
+    src, tpu = KERNELS["fused_leapfrog_steps"]
+    return {
+        "name": "fused_leapfrog_steps", "block": list(shape), "route": "cuda",
+        "source": f"implicitglobalgrid_tpu_torch/csrc/{src}.cu", "replaces": tpu,
+        "launches": c["fused_leapfrog_steps"], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
 
