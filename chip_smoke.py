@@ -372,6 +372,21 @@ and then prints no result line):
    and P moved on the boundary; ms per launch beside its bound, the plain
    version's ms and the main path's ms per step.  Its record joins the
    last JSON line's kernels.
+22. The porous temperature update's kernel (``ops.temperature_update``,
+   ``csrc/temperature_update.cu``, which replaces XLA's fusion of the JAX
+   package's plain update and no Pallas kernel) on the 256^3 porous
+   benchmark cell's own path: its ``-Xptxas -v`` registers and spills per
+   entry; ``porous_convection3d.setup(256, 256, 256, npt=12)`` float32,
+   periodic in y with overlap 14, seeded noise on T (0.01, as the cell's
+   inputs carry), ``make_multi_step(params, 8, fused_k=6,
+   autotune=False)`` from zeroed launch counts: 8 launches of the kernel
+   and 16 of ``fused_pt_iterations``, bit for bit the same cadence built
+   on ``temperature_update_reference``, and the ms per step of both; then
+   one launch on the step's output fields with the model's coefficients
+   against ``temperature_update_reference`` (bit-exact), ms per launch
+   beside its bound (T and the three face fluxes read once, T written
+   once), and the plain version's ms.  Its record joins the last JSON
+   line's kernels.  Phase 6's "T update" split times the same kernel.
 
 Before the timing lines of phases 3, 5 and 6, each x-marching kernel's
 tile, shared memory per block and resident blocks per SM
@@ -896,7 +911,8 @@ def main() -> None:
             exchange_ms = cuda_ms(torch, lambda: igg.update_halo(*bufs, width=w), reps=10)
             t_exchange_ms = cuda_ms(torch, lambda: igg.update_halo(bufs[0]), reps=10)
             del bufs
-            print(f"phase 6: per step: T update (plain torch) {t_ms!r} ms; width-6 exchange of "
+            print(f"phase 6: per step: T update (temperature_update kernel) {t_ms!r} ms; "
+                  f"width-6 exchange of "
                   f"the 4 PT fields {exchange_ms!r} ms (2 per step); width-1 exchange of one "
                   f"cell field (T's) {t_exchange_ms!r} ms {card}")
             record("fused_pt_iterations", c["fused_pt_iterations"], kernel_ms, plain_ms,
@@ -944,10 +960,12 @@ def main() -> None:
     update_record = phase20(torch, igg, reset_counts, counts, card)
     PHASE[0] = "21"
     leapfrog512_record = phase21(torch, igg, reset_counts, counts, card)
+    PHASE[0] = "22"
+    t_update_record = phase22(torch, igg, reset_counts, counts, card)
 
-    print(f"chip_smoke: phases 1-21 passed in {time.perf_counter() - t_start!r} s {card}")
+    print(f"chip_smoke: phases 1-22 passed in {time.perf_counter() - t_start!r} s {card}")
     print(json.dumps({"kernels": [*(records[name] for name in KERNELS), update_record,
-                                  leapfrog512_record]}))
+                                  leapfrog512_record, t_update_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -2341,9 +2359,8 @@ def phase13(torch, igg, reset_counts, counts, card, main_split, main_step_ms) ->
             kern_s = rec["op_seconds"].get("kernels", {}).get(label, 0.0)
             shares = {label: kern_s / rec["busy_seconds"]} if rec["busy_seconds"] else {}
             if name == "porous_convection3d":
-                shares["T update"] = (rec["scope_seconds"].get("kernels", 0.0)
-                                      + rec["scope_seconds"].get("glue", 0.0)
-                                      - kern_s) / rec["busy_seconds"]
+                shares["T update"] = (rec["scope_seconds"].get("igg_temperature_update", 0.0)
+                                      / rec["busy_seconds"])
             steps = meta["stopped_at_step"] - meta["started_at_step"] + 1
             busy_ms = rec["busy_seconds"] / steps * 1e3
             print(f"phase 13a: {name} 256^3 f32 run({nt}, {kw}) under IGG_PROFILE={window}: "
@@ -3726,6 +3743,92 @@ def phase21(torch, igg, reset_counts, counts, card, n=512, nsteps=24, k=6) -> di
         "source": f"implicitglobalgrid_tpu_torch/csrc/{src}.cu", "replaces": tpu,
         "launches": c["fused_leapfrog_steps"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def phase22(torch, igg, reset_counts, counts, card, n=256, nsteps=8, k=6) -> dict:
+    """Phase 22: the porous temperature update's kernel on the porous cell's
+    own path at n^3 float32 (see the module docstring); returns its record."""
+    from implicitglobalgrid_tpu_torch.analysis import ptxas
+    from implicitglobalgrid_tpu_torch.models import porous_convection3d
+    from implicitglobalgrid_tpu_torch.ops import _kernels
+    from implicitglobalgrid_tpu_torch.ops import temperature_update as tu
+
+    _kernels.build("temperature_update")
+    regs = ptxas.parse_report(_kernels.build_log("temperature_update") or "")
+    if not regs:
+        fail("phase 22: no -Xptxas -v report of temperature_update.cu")
+    for entry, m in regs.items():
+        print(f"phase 22: temperature_update.cu {entry}: {m['registers']} registers, spills "
+              f"{m['spill_stores']} B stored / {m['spill_loads']} B loaded, "
+              f"{m['smem_bytes']} B static shared memory")
+    f32 = torch.float32
+
+    # The porous cell's main path: 2 PT chunks and one T update a step.
+    ov = dict(overlapx=14, overlapy=14, overlapz=14)
+    state, params = porous_convection3d.setup(n, n, n, npt=12, periody=1, dtype=f32,
+                                              quiet=True, **ov)
+    gen = torch.Generator(device=state[0].device).manual_seed(22)
+    state = (state[0] + 0.01 * torch.randn(state[0].shape, generator=gen,
+                                           device=state[0].device, dtype=f32), *state[1:])
+    step = porous_convection3d.make_multi_step(params, nsteps, fused_k=k, autotune=False)
+    built = porous_convection3d._temperature_update
+    coeffs = (params.lam_T, 1.0 / params.phi, params.dt, params.dx, params.dy, params.dz)
+    porous_convection3d._temperature_update = lambda p: lambda *f: (
+        tu.temperature_update_reference(*f, *coeffs))
+    try:
+        plain = porous_convection3d.make_multi_step(params, nsteps, fused_k=k, autotune=False)
+    finally:
+        porous_convection3d._temperature_update = built
+    step(*state)  # warm-up (allocator)
+    torch.cuda.synchronize()
+    reset_counts()
+    tu.launches = 0
+    got = step(*state)
+    torch.cuda.synchronize()
+    c, launched = counts(), tu.launches
+    if (c != {**{name: 0 for name in c}, "fused_pt_iterations": 2 * nsteps}
+            or launched != nsteps):
+        fail(f"phase 22: make_multi_step(params, {nsteps}, fused_k={k}) launched {c} and "
+             f"{launched} temperature_update, expected {2 * nsteps} fused_pt_iterations and "
+             f"{nsteps} temperature_update")
+    want = plain(*state)
+    torch.cuda.synchronize()
+    main_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"phase 22: the porous cadence differs from it built on the plain T update: "
+             f"{main_err!r}")
+    del want
+    step_ms = cuda_ms(torch, lambda: step(*state), reps=5) / nsteps
+    plain_step_ms = cuda_ms(torch, lambda: plain(*state), reps=3, warmup=1) / nsteps
+    print(f"phase 22: porous {n}^3 f32 npt=12 periodic y overlap 14, make_multi_step(params, "
+          f"{nsteps}, fused_k={k}): launches {c}, temperature_update {launched}; bit-exact with "
+          f"the cadence on temperature_update_reference; {step_ms!r} ms/step (the plain T "
+          f"update's cadence {plain_step_ms!r} ms/step) {card}")
+    igg.finalize_global_grid()
+
+    # One launch on the step's fields, with the model's coefficients.
+    T, _, qDx, qDy, qDz = got
+    del got, state
+    err = float((tu.temperature_update(T, qDx, qDy, qDz, *coeffs)
+                 - tu.temperature_update_reference(T, qDx, qDy, qDz, *coeffs)).abs().max())
+    if err != 0.0:
+        fail(f"phase 22: temperature_update differs from its plain version: {err!r}")
+    ms = cuda_ms(torch, lambda: tu.temperature_update(T, qDx, qDy, qDz, *coeffs), reps=50)
+    plain_ms = cuda_ms(torch, lambda: tu.temperature_update_reference(T, qDx, qDy, qDz, *coeffs),
+                       reps=5)
+    bound_ms, bound_by = bound(nbytes(T, qDx, qDy, qDz, T), 50 * n**3)
+    print(f"phase 22: temperature_update {n}^3 f32: {ms!r} ms/launch, bound {bound_ms!r} ms "
+          f"({bound_by}, {100 * bound_ms / ms:.2f}%); plain version {plain_ms!r} ms; "
+          f"max|kernel-plain| = {err!r}; vector width {tu.vector_width(T, qDx, qDy)} {card}")
+    return {
+        "name": "temperature_update", "block": [n] * 3, "route": "cuda",
+        "source": "implicitglobalgrid_tpu_torch/csrc/temperature_update.cu",
+        "replaces": "XLA's fusion of implicitglobalgrid_tpu/models/porous_convection3d.py "
+                    "_temperature_update (no Pallas kernel)",
+        "launches": launched, "max_abs_err": max(err, main_err), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ptxas": regs,
     }
 
 

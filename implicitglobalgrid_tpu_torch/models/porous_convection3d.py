@@ -11,7 +11,9 @@ Darcy flow with Boussinesq buoyancy plus temperature advection-diffusion:
 * **Staggered fields**: Darcy fluxes live on cell faces (``n+1`` shapes).
 * **Buoyancy**: ``qD = -k/eta * (grad(Pf) - Ra_hat * T * e_z)``.
 * **Temperature**: explicit upwind advection + diffusion of the interior,
-  then a halo exchange; frozen boundary planes are the walls.
+  then a halo exchange; frozen boundary planes are the walls.  On the card
+  the update is one hand-written CUDA pass (`ops.temperature_update`) on
+  every cadence.
 
 State: ``(T, Pf, qDx, qDy, qDz)``.  ``make_multi_step(fused_k=w)`` runs the
 PT iterations between slab exchanges in the hand-written CUDA kernel
@@ -39,10 +41,10 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from ..ops import fused_pt
+from ..ops import fused_pt, temperature_update
 from ..ops.fused_pt import fused_pt_iterations
-from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
-from ..ops.overlap import overlapped
+from ..ops.halo import dim_has_halo_activity, needs_grad, require_deep_halo, update_halo
+from ..ops.overlap import fused_with_plain_grad, overlapped
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils import profiling as _profiling
 from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
@@ -222,37 +224,29 @@ def _pt_iteration(params: Params, batch: bool = False, coalesce=None):
 
 def _temperature_update(params: Params):
     """Explicit upwind advection + diffusion of T (interior), frozen walls.
-    Blocks or batches of them.  The update is the profiler range
-    ``igg_temperature_update`` while a capture is live."""
-    dx, dy, dz = params.dx, params.dy, params.dz
-    lam = params.lam_T
-    iphi = 1.0 / params.phi
-    dt = params.dt
+    Blocks or batches of them.
+
+    The update is `ops.temperature_update.temperature_update` (one pass of
+    the CUDA kernel on the card, the plain version on the CPU); under
+    autograd the kernel runs in the forward and the plain version in the
+    backward (`ops.overlap.fused_with_plain_grad`).  The update is the
+    profiler range ``igg_temperature_update`` while a capture is live."""
+    coeffs = (params.lam_T, 1.0 / params.phi, params.dt, params.dx, params.dy, params.dz)
+
+    def fast(T, qDx, qDy, qDz):
+        return temperature_update.temperature_update(T, qDx, qDy, qDz, *coeffs)
+
+    def plain(T, qDx, qDy, qDz):
+        with _profiling.scope("igg_temperature_update"):
+            return temperature_update.temperature_update_reference(T, qDx, qDy, qDz, *coeffs)
+
+    with_grad = fused_with_plain_grad(lambda *f: (fast(*f),), lambda *f: (plain(*f),))
 
     def update(T, qDx, qDy, qDz):
         with _profiling.scope("igg_temperature_update"):
-            c = _inn(T)
-            lap = (
-                (T[..., 2:, 1:-1, 1:-1] - 2 * c + T[..., :-2, 1:-1, 1:-1]) / (dx * dx)
-                + (T[..., 1:-1, 2:, 1:-1] - 2 * c + T[..., 1:-1, :-2, 1:-1]) / (dy * dy)
-                + (T[..., 1:-1, 1:-1, 2:] - 2 * c + T[..., 1:-1, 1:-1, :-2]) / (dz * dz)
-            )
-            # Upwind advective derivatives at interior cells from face fluxes.
-            qxm, qxp = qDx[..., 1:-2, 1:-1, 1:-1], qDx[..., 2:-1, 1:-1, 1:-1]
-            qym, qyp = qDy[..., 1:-1, 1:-2, 1:-1], qDy[..., 1:-1, 2:-1, 1:-1]
-            qzm, qzp = qDz[..., 1:-1, 1:-1, 1:-2], qDz[..., 1:-1, 1:-1, 2:-1]
-            adv = (
-                qxm.clamp_min(0.0) * ((c - T[..., :-2, 1:-1, 1:-1]) / dx)
-                + qxp.clamp_max(0.0) * ((T[..., 2:, 1:-1, 1:-1] - c) / dx)
-                + qym.clamp_min(0.0) * ((c - T[..., 1:-1, :-2, 1:-1]) / dy)
-                + qyp.clamp_max(0.0) * ((T[..., 1:-1, 2:, 1:-1] - c) / dy)
-                + qzm.clamp_min(0.0) * ((c - T[..., 1:-1, 1:-1, :-2]) / dz)
-                + qzp.clamp_max(0.0) * ((T[..., 1:-1, 1:-1, 2:] - c) / dz)
-            )
-            delta = dt * (lam * lap - iphi * adv)
-            T = T.clone()
-            _inn(T).add_(delta)
-            return T
+            if needs_grad((T, qDx, qDy, qDz)):
+                return with_grad(T, qDx, qDy, qDz)[0]
+            return fast(T, qDx, qDy, qDz)
 
     return update
 

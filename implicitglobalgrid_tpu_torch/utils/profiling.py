@@ -21,7 +21,7 @@ The port's copy of the JAX package's ``utils/profiling.py`` over
   (`close_open_capture`), so the bytes already captured land.
 * **Scopes.** The port opens `torch.profiler.record_function` ranges named
   as the JAX package's ``named_scope``s (`SCOPE_NAMES`: the exchanges in
-  `ops.halo`, the ring and interior passes in `models._fused`), the plain
+  `ops.halo`, the ring and interior passes in `models._fused`), the per-step
   updates ``igg_temperature_update`` (porous) and ``igg_diffusion_update``,
   and ``igg_step[<model>]`` around each guarded-loop call, only while a
   capture is live (`scope`: one module bool read otherwise).  A

@@ -632,7 +632,7 @@ def test_ptxas_parser_on_a_recorded_report():
     base = ptxas.load_baseline()
     assert {k: base["kernels"]["fused_pt"][k] for k in got} == got
     assert sorted(base["kernels"]) == ptxas.sources() == [
-        "diffusion_update", "fused_diffusion", "fused_leapfrog", "fused_pt"]
+        "diffusion_update", "fused_diffusion", "fused_leapfrog", "fused_pt", "temperature_update"]
     assert all(len(base["justifications"][f"{s}::{e}"]) > 40
                for s, es in base["kernels"].items() for e in es)
 
