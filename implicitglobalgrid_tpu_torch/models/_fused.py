@@ -1,4 +1,9 @@
-"""The fused cadences' group schedules (diffusion, acoustic, porous).
+"""The models' cadence front end and the fused cadences' group schedules.
+
+`make_cadence` is every model's ``make_multi_step``: the cadence checks and
+the dispatch to ``fused_k`` kernel groups, ``exchange_every`` slab groups or
+the per-step path, built from the model's pieces (`exchanged`: the per-step
+wiring of an update and its exchange).
 
 Counterpart of the JAX package's ``models/_fused.py``.  A fused cadence runs
 its steps in groups: one kernel launch of ``k`` steps, then one width-``w``
@@ -53,9 +58,10 @@ from ..ops.halo import (
     exchange_dims,
     finish_slab_exchange,
     needs_grad,
+    require_deep_halo,
     update_halo,
 )
-from ..ops.overlap import fused_with_plain_grad, tile_split_error, tile_split_sel
+from ..ops.overlap import fused_with_plain_grad, overlapped, tile_split_error, tile_split_sel
 from ..parallel.grid import global_grid
 from ..utils import profiling as _profiling
 from . import _batched
@@ -174,24 +180,23 @@ def group_plan(kernel_mod, model: str, shape, dtype, device, *, k: int, width: i
     return split, sel, tile if split or fused_tile is not None else None
 
 
-def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipelined, fused_tile,
-                 stagger: int, gg, batch: bool = False, coalesce=None):
-    """A fused cadence's group sequence, serialized or pipelined: the one
-    dispatch of the three models.
+def fused_groups(kernel_mod, model: str, chunks, kernel, plain, *, k: int, width: int,
+                 pipelined, fused_tile, stagger: int, gg, batch: bool = False, coalesce=None):
+    """A fused cadence's group sequence, serialized or pipelined.
 
-    Returns ``run(kernel, plain, carry, aux=()) -> carry``.  ``carry``: a
-    tuple of fields, the first cell-shaped (batched ``(B, *block)`` with
-    ``batch``); ``aux``: read-only fields the groups also take (diffusion's
-    Cp, porous T).  ``kernel(ki, carry, aux, tile, **subset) -> carry``
-    launches one group of ``ki`` steps (``subset``: ``tile_sel`` and
-    ``carry_in``); every group is followed by a width-``width`` exchange of
-    all fields (``coalesce`` as in `ops.halo.update_halo`).  ``plain(ki,
-    carry, aux) -> carry`` runs the same ``ki`` steps with the model's plain
-    updates: under autograd (`ops.halo.needs_grad`) each group runs through
-    `fused_with_plain_grad`, its backward that of ``plain`` followed by the
-    differentiable exchange, ``carry`` and ``aux`` its explicit inputs.  The schedule and its tile (`group_plan`) are
-    resolved once per block shape, dtype and device, at the first call that
-    brings them.
+    Returns ``run(carry, aux) -> carry``.  ``carry``: a tuple of fields,
+    the first cell-shaped (batched ``(B, *block)`` with ``batch``);
+    ``aux``: read-only fields the groups also take (diffusion's Cp, porous
+    T).  ``kernel(ki, carry, aux, tile, **subset) -> carry`` launches one
+    group of ``ki`` steps (``subset``: ``tile_sel`` and ``carry_in``); every
+    group is followed by a width-``width`` exchange of all fields
+    (``coalesce`` as in `ops.halo.update_halo`).  ``plain(carry, aux) ->
+    carry`` is one step of the model's plain updates: under autograd
+    (`ops.halo.needs_grad`) each group runs through `fused_with_plain_grad`,
+    its backward that of ``ki`` plain steps followed by the differentiable
+    exchange, ``carry`` and ``aux`` its explicit inputs.  The schedule and
+    its tile (`group_plan`) are resolved once per block shape, dtype and
+    device, at the first call that brings them.
     """
     active = any(dim_has_halo_activity(gg, d) for d in range(3))
     z_exchange = dim_has_halo_activity(gg, 2)
@@ -199,7 +204,7 @@ def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipeline
     exchange = _batched.update_halo if batch else update_halo
     plans: dict = {}
 
-    def run(kernel, plain, carry, aux=()):
+    def run(carry, aux):
         c0 = carry[0]
         key = (tuple(c0.shape[lead:]), c0.dtype, c0.device)
         if key not in plans:
@@ -210,7 +215,9 @@ def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipeline
         n = len(carry)
 
         def plain_group(ki, *a):
-            c = plain(ki, a[:n], a[n:])
+            c = a[:n]
+            for _ in range(ki):
+                c = plain(c, a[n:])
             return halo_exchange(c, width=width, lead=lead, coalesce=coalesce) if active else c
 
         def wrap(group):
@@ -244,6 +251,146 @@ def fused_groups(kernel_mod, model: str, chunks, *, k: int, width: int, pipeline
         return run_group_schedule(chunks, wrap(group), tuple(carry))
 
     return run
+
+
+def make_cadence(model: str, params, nsteps: int, *, family: str, kernel, stagger: int, launch,
+                 advance, plain=None, per_step, read_only: int = 0, schedule=None, frame=None,
+                 unit=("step", "steps"), fused_k, fused_tile, exchange_every, pipelined, batch,
+                 coalesce=None, autotune):
+    """A model's ``make_multi_step``: ``state -> state`` advanced by
+    ``nsteps`` on the cadence its keywords select (``fused_k`` on, resolved
+    first through the tuner under ``model``).  Every check raises here,
+    when the cadence is built.  The model gives what is its own:
+
+    * ``kernel``, ``family``, ``stagger``, ``launch(ki, c, aux, tile,
+      **subset) -> c``: its fused groups' (`fused_groups`);
+    * ``advance(c, aux) -> c``: one step of the fields ``c`` without
+      exchange (``aux``: the read-only fields), which the ``exchange_every``
+      groups repeat and, unless ``plain`` is given, a fused group's backward;
+    * ``per_step(params, batch, coalesce)``: the per-step path's step;
+    * ``read_only``: the state's trailing fields that no step writes (the
+      groups' ``aux``); the per-step step returns the one field before them;
+    * ``frame(steps, halo)``: where a call is ``nsteps`` time steps, each
+      this frame around the cadence's ``steps(c, aux) -> c`` (the per-step
+      path's: ``per_step``'s), ``halo`` its exchange (None: none); then
+      ``schedule(w, fused) -> (lead, chunks)`` cuts ``steps`` into ``lead``
+      steps each followed by a width-1 exchange, and groups of ``chunks[i]``.
+      Without a frame the groups, ``w`` steps each, cover ``nsteps``;
+    * ``unit``: the (singular, plural) words the messages count steps in.
+    """
+    from ..tuning.search import maybe_autotune
+
+    fused_k, fused_tile, exchange_every, pipelined, coalesce = maybe_autotune(
+        model, params, nsteps, autotune, batch=batch, fused_k=fused_k, fused_tile=fused_tile,
+        exchange_every=exchange_every, pipelined=pipelined, coalesce=coalesce,
+    )
+    bx, by = fused_tile if fused_tile is not None else (None, None)
+    if (bx is None) != (by is None):
+        raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")
+    gg = global_grid()
+    active = any(dim_has_halo_activity(gg, d) for d in range(3))
+    exchange = _batched.update_halo if batch else update_halo
+    one, many = unit
+
+    def halo(c, width=1):
+        out = exchange(*c, width=width, coalesce=coalesce)
+        return out if len(c) > 1 else (out,)
+
+    if not fused_k and exchange_every < 1:
+        raise ValueError(f"exchange_every must be >= 1 (got {exchange_every})")
+    if fused_k or exchange_every > 1:
+        knob, w = ("fused_k", fused_k) if fused_k else ("exchange_every", exchange_every)
+        if params.hide_comm:
+            raise ValueError(f"{knob} and hide_comm are mutually exclusive: " + (
+                f"the fused kernel's slab exchange is already amortized over k {one}s; "
+                f"overlap scheduling applies to the per-{one} XLA path." if fused_k else
+                f"overlap scheduling hides the per-{one} exchange; a slab cadence replaces it."))
+        if frame is None and nsteps % w != 0:
+            raise ValueError(f"nsteps={nsteps} must be a multiple of {knob}={w}")
+        if fused_k and exchange_every not in (1, fused_k):
+            raise ValueError(
+                f"fused_k={fused_k} already exchanges every fused_k {many}; "
+                f"exchange_every={exchange_every} conflicts."
+            )
+        require_deep_halo(w, gg, what=knob)
+        lead, chunks = schedule(w, bool(fused_k)) if schedule else (0, [w] * (nsteps // w))
+        if fused_k:
+            if pipelined and not active:
+                warn_pipelined_fallback(None, w, "no halo activity: nothing to overlap", family)
+            groups = fused_groups(kernel, family, chunks, launch, plain or advance, k=w, width=w,
+                                  pipelined=pipelined, fused_tile=fused_tile, stagger=stagger,
+                                  gg=gg, batch=batch, coalesce=coalesce)
+        else:
+            def groups(c, aux):
+                for ki in chunks:
+                    for _ in range(ki):
+                        c = advance(c, aux)
+                    c = halo(c, w)
+                return c
+
+        def steps(c, aux):
+            for _ in range(lead):
+                c = advance(c, aux)
+                if active:
+                    c = halo(c)
+            return groups(c, aux)
+
+        last = None if fused_k and not active else exchange
+    else:
+        if pipelined:
+            raise ValueError(
+                "pipelined applies to the group cadences (fused_k or "
+                f"exchange_every > 1); the per-{one} path has no group "
+                "schedule."
+            )
+        steps, last = per_step(params, batch, coalesce), exchange
+        if frame is None:
+            return _batched.checked(_loop(steps, nsteps, read_only), batch)
+    if frame is not None:
+        return _batched.checked(_loop(frame(steps, last), nsteps), batch)
+
+    def multi_step(*s):
+        n = len(s) - read_only
+        return (*steps(s[:n], s[n:]), *s[n:])
+
+    return _batched.checked(multi_step, batch)
+
+
+def _loop(step, nsteps: int, read_only: int = 0):
+    """``step`` ``nsteps`` times over the state; with ``read_only`` trailing
+    fields the step returns the one field before them."""
+    if read_only:
+        def multi_step(f, *aux):
+            for _ in range(nsteps):
+                f = step(f, *aux)
+            return (f, *aux)
+
+        return multi_step
+
+    def multi_step(*s):
+        for _ in range(nsteps):
+            s = step(*s)
+        return s
+
+    return multi_step
+
+
+def exchanged(update, hide_comm: bool, batch: bool, coalesce=None):
+    """``update`` followed by the exchange of its output, one field or
+    several (`ops.halo.update_halo`, ``coalesce`` as there), or with
+    ``hide_comm`` the two overlapped (`ops.overlap.overlapped`),
+    bit-identical either way; ``batch``: of a batch (`models._batched`)."""
+    if hide_comm:
+        return overlapped(update, 1, None, lead=int(batch), coalesce=coalesce)
+    halo = _batched.update_halo if batch else update_halo
+
+    def step(*fields):
+        out = update(*fields)
+        if isinstance(out, torch.Tensor):
+            return halo(out, coalesce=coalesce)
+        return halo(*out, coalesce=coalesce)
+
+    return step
 
 
 def resolve_pipelined(pipelined, split_err, shape, k, model: str, *, remote: bool) -> bool:

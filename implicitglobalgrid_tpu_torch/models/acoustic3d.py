@@ -42,8 +42,6 @@ import torch
 
 from ..ops import fused_leapfrog
 from ..ops.fused_leapfrog import fused_leapfrog_steps
-from ..ops.halo import dim_has_halo_activity, require_deep_halo, update_halo
-from ..ops.overlap import overlapped
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
@@ -174,15 +172,8 @@ def make_step(params: Params, *, batch: bool = False):
 def _leapfrog_step(params: Params, batch: bool, coalesce=None):
     """`make_step`'s step, its velocity exchange coalesced as ``coalesce``
     says (`ops.halo.update_halo`)."""
-    v_update = _velocity_update(params)
+    v_exchanged = _fused.exchanged(_velocity_update(params), params.hide_comm, batch, coalesce)
     p_update = _pressure_update(params)
-    if params.hide_comm:
-        v_exchanged = overlapped(v_update, 1, None, lead=int(batch), coalesce=coalesce)
-    else:
-        halo = _batched.update_halo if batch else update_halo
-
-        def v_exchanged(*s):
-            return halo(*v_update(*s), coalesce=coalesce)
 
     def step(P, Vx, Vy, Vz):
         Vx, Vy, Vz = v_exchanged(P, Vx, Vy, Vz)
@@ -249,118 +240,32 @@ def make_multi_step(
     dtype word width instead of one per field (`ops.halo.update_halo`),
     bit-identical either way.
 
-    ``autotune`` (None = ``IGG_AUTOTUNE`` env, default off): substitute the
-    cached winner config of this (backend, topology, model, local size,
-    dtype, batch) point into the kwargs above — searching (cost-model
-    pruned, short runs measured on the grid's device) and persisting it on
-    first use (`implicitglobalgrid_tpu_torch.tuning`).  A pure schedule
-    substitution: results stay those of the default config, bit for bit
-    wherever the two cadences round alike.  Explicitly-set kwargs always
-    win — autotune only fills fields left at their defaults.
+    ``autotune``: the tuner's cached winner config for the kwargs left at
+    their defaults, as in `models.diffusion3d.make_multi_step`.
 
     Differentiable on every cadence (`torch.autograd`); ``fused_k`` runs
     the kernel in the forward and the ``exchange_every=k`` cadence's groups
     in the backward (`models._fused`).
     """
-    from ..tuning.search import maybe_autotune
-
-    fused_k, fused_tile, exchange_every, pipelined, coalesce = maybe_autotune(
-        "acoustic3d", params, nsteps, autotune, batch=batch,
-        fused_k=fused_k, fused_tile=fused_tile, exchange_every=exchange_every,
-        pipelined=pipelined, coalesce=coalesce,
-    )
     v_update = _velocity_update(params)
     p_update = _pressure_update(params)
-    halo = _batched.update_halo if batch else update_halo
-    gg = global_grid()
-    bx, by = fused_tile if fused_tile is not None else (None, None)
-    if (bx is None) != (by is None):
-        raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")
+    co = (params.dt / params.rho / params.dx, params.dt / params.rho / params.dy,
+          params.dt / params.rho / params.dz, params.dt * params.K,
+          1.0 / params.dx, 1.0 / params.dy, 1.0 / params.dz)
 
-    def leapfrog(s):
+    def leapfrog(s, aux):
         Vx, Vy, Vz = v_update(*s)
         return p_update(s[0], Vx, Vy, Vz), Vx, Vy, Vz
 
-    if fused_k:
-        if params.hide_comm:
-            raise ValueError(
-                "fused_k and hide_comm are mutually exclusive: the fused "
-                "kernel's slab exchange is already amortized over k steps; "
-                "overlap scheduling applies to the per-step XLA path."
-            )
-        if nsteps % fused_k != 0:
-            raise ValueError(f"nsteps={nsteps} must be a multiple of fused_k={fused_k}")
-        if exchange_every not in (1, fused_k):
-            raise ValueError(
-                f"fused_k={fused_k} already exchanges every fused_k steps; "
-                f"exchange_every={exchange_every} conflicts."
-            )
-        require_deep_halo(fused_k, gg, what="fused_k")
-        if pipelined and not any(dim_has_halo_activity(gg, d) for d in range(3)):
-            _fused.warn_pipelined_fallback(None, fused_k, "no halo activity: nothing to overlap",
-                                           "acoustic")
-        co = (params.dt / params.rho / params.dx, params.dt / params.rho / params.dy,
-              params.dt / params.rho / params.dz, params.dt * params.K,
-              1.0 / params.dx, 1.0 / params.dy, 1.0 / params.dz)
-        # All four fields exchange: P's stale rind must ride along.
-        run_groups = _fused.fused_groups(
-            fused_leapfrog, "acoustic", [fused_k] * (nsteps // fused_k), k=fused_k,
-            width=fused_k, pipelined=pipelined, fused_tile=fused_tile, stagger=1, gg=gg,
-            batch=batch, coalesce=coalesce,
-        )
-
-        def plain_steps(ki, s, aux):
-            for _ in range(ki):
-                s = leapfrog(s)
-            return s
-
-        def fused_multi_step(*s):
-            return run_groups(
-                lambda ki, c, aux, tile, **subset: fused_leapfrog_steps(*c, ki, *co, tile=tile,
+    # Every group exchanges all four fields: P's stale rind must ride along.
+    return _fused.make_cadence(
+        "acoustic3d", params, nsteps, family="acoustic", kernel=fused_leapfrog, stagger=1,
+        launch=lambda ki, c, aux, tile, **subset: fused_leapfrog_steps(*c, ki, *co, tile=tile,
                                                                         **subset),
-                plain_steps, s,
-            )
-
-        return _batched.checked(fused_multi_step, batch)
-
-    if exchange_every < 1:
-        raise ValueError(f"exchange_every must be >= 1 (got {exchange_every})")
-    if exchange_every > 1:
-        if params.hide_comm:
-            raise ValueError(
-                "exchange_every and hide_comm are mutually exclusive: overlap "
-                "scheduling hides the per-step exchange; a slab cadence "
-                "replaces it."
-            )
-        if nsteps % exchange_every != 0:
-            raise ValueError(
-                f"nsteps={nsteps} must be a multiple of exchange_every={exchange_every}"
-            )
-        require_deep_halo(exchange_every, gg)
-        w = exchange_every
-
-        def slab_multi_step(*s):
-            for _ in range(nsteps // w):
-                for _ in range(w):
-                    s = leapfrog(s)
-                s = halo(*s, width=w, coalesce=coalesce)
-            return s
-
-        return _batched.checked(slab_multi_step, batch)
-
-    if pipelined:
-        raise ValueError(
-            "pipelined applies to the group cadences (fused_k or "
-            "exchange_every > 1); the per-step path has no group schedule."
-        )
-    step = _leapfrog_step(params, batch, coalesce)
-
-    def multi_step(*s):
-        for _ in range(nsteps):
-            s = step(*s)
-        return s
-
-    return _batched.checked(multi_step, batch)
+        advance=leapfrog, per_step=_leapfrog_step, fused_k=fused_k, fused_tile=fused_tile,
+        exchange_every=exchange_every, pipelined=pipelined, batch=batch, coalesce=coalesce,
+        autotune=autotune,
+    )
 
 
 def run(nt: int, nx: int = 64, ny: int = 64, nz: int = 64, *,

@@ -37,8 +37,7 @@ import torch
 
 from ..ops import diffusion_update, fused_stencil
 from ..ops.fused_stencil import fused_diffusion_steps
-from ..ops.halo import dim_has_halo_activity, needs_grad, require_deep_halo, update_halo
-from ..ops.overlap import fused_with_plain_grad, overlapped
+from ..ops.overlap import _routed_update
 from ..parallel.grid import global_grid, init_global_grid
 from ..utils import profiling as _profiling
 from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
@@ -160,31 +159,17 @@ def _diffusion_update(params: Params):
     (`ops.overlap.fused_with_plain_grad`).  The update is the profiler range
     ``igg_diffusion_update`` while a capture is live."""
     coeffs = (params.lam, params.dt, params.dx, params.dy, params.dz)
-    plain = _plain_update(params)
-
-    def fast(T, Cp):
-        return diffusion_update.diffusion_update(T, Cp, *coeffs)
-
-    with_grad = fused_with_plain_grad(lambda T, Cp: (fast(T, Cp),),
-                                      lambda T, Cp: (plain(T, Cp),))
-
-    def update(T, Cp):
-        with _profiling.scope("igg_diffusion_update"):
-            if needs_grad((T, Cp)):
-                return with_grad(T, Cp)[0]
-            return fast(T, Cp)
-
-    return update
+    return _routed_update(
+        lambda T, Cp: diffusion_update.diffusion_update(T, Cp, *coeffs),
+        lambda T, Cp: diffusion_update.diffusion_update_reference(T, Cp, *coeffs),
+        "igg_diffusion_update",
+    )
 
 
-def _one_step(params: Params, batch: bool = False):
+def _one_step(params: Params, batch: bool = False, coalesce=None):
     """``(T, Cp) -> T``: the update and its exchange, overlapped with
     ``params.hide_comm`` (bit-identical either way); ``batch``: of a batch."""
-    update = _diffusion_update(params)
-    if params.hide_comm:
-        return overlapped(update, 1, None, lead=int(batch))
-    halo = _batched.update_halo if batch else update_halo
-    return lambda T, Cp: halo(update(T, Cp))
+    return _fused.exchanged(_diffusion_update(params), params.hide_comm, batch, coalesce)
 
 
 def make_step(params: Params, *, batch: bool = False):
@@ -272,98 +257,18 @@ def make_multi_step(
     ``fused_k`` runs the kernel in the forward and the ``exchange_every=k``
     cadence's groups in the backward (`models._fused`).
     """
-    from ..tuning.search import maybe_autotune
-
-    # the diffusion cadence exchanges one field: no coalesce to substitute
-    fused_k, fused_tile, exchange_every, pipelined, _ = maybe_autotune(
-        "diffusion3d", params, nsteps, autotune, batch=batch,
-        fused_k=fused_k, fused_tile=fused_tile, exchange_every=exchange_every,
-        pipelined=pipelined,
-    )
     update = _diffusion_update(params)
-    halo = _batched.update_halo if batch else update_halo
-    gg = global_grid()
-    bx, by = fused_tile if fused_tile is not None else (None, None)
-    if (bx is None) != (by is None):
-        raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")
-
-    def slab_cadence(T, Cp, w):
-        for _ in range(nsteps // w):
-            for _ in range(w):
-                T = update(T, Cp)
-            T = halo(T, width=w)
-        return T, Cp
-
-    if fused_k:
-        if params.hide_comm:
-            raise ValueError(
-                "fused_k and hide_comm are mutually exclusive: the fused "
-                "kernel's slab exchange is already amortized over k steps; "
-                "overlap scheduling applies to the per-step XLA path."
-            )
-        if nsteps % fused_k != 0:
-            raise ValueError(f"nsteps={nsteps} must be a multiple of fused_k={fused_k}")
-        if exchange_every not in (1, fused_k):
-            raise ValueError(
-                f"fused_k={fused_k} already exchanges every fused_k steps; "
-                f"exchange_every={exchange_every} conflicts."
-            )
-        require_deep_halo(fused_k, gg, what="fused_k")
-        if pipelined and not any(dim_has_halo_activity(gg, d) for d in range(3)):
-            _fused.warn_pipelined_fallback(None, fused_k, "no halo activity: nothing to overlap")
-        c3 = tuple(params.dt * params.lam / (d * d) for d in (params.dx, params.dy, params.dz))
-        run_groups = _fused.fused_groups(
-            fused_stencil, "diffusion", [fused_k] * (nsteps // fused_k), k=fused_k,
-            width=fused_k, pipelined=pipelined, fused_tile=fused_tile, stagger=0, gg=gg,
-            batch=batch,
-        )
-
-        plain = _plain_update(params)
-
-        def plain_steps(ki, c, aux):
-            T = c[0]
-            for _ in range(ki):
-                T = plain(T, aux[0])
-            return (T,)
-
-        def fused_multi_step(T, Cp):
-            (T,) = run_groups(
-                lambda ki, c, aux, tile, **subset: (
-                    fused_diffusion_steps(c[0], aux[0], ki, *c3, tile=tile, **subset),),
-                plain_steps, (T,), (Cp,),
-            )
-            return T, Cp
-
-        return _batched.checked(fused_multi_step, batch)
-
-    if exchange_every < 1:
-        raise ValueError(f"exchange_every must be >= 1 (got {exchange_every})")
-    if exchange_every > 1:
-        if params.hide_comm:
-            raise ValueError(
-                "exchange_every and hide_comm are mutually exclusive: overlap "
-                "scheduling hides the per-step exchange; a slab cadence "
-                "replaces it."
-            )
-        if nsteps % exchange_every != 0:
-            raise ValueError(
-                f"nsteps={nsteps} must be a multiple of exchange_every={exchange_every}"
-            )
-        require_deep_halo(exchange_every, gg)
-        return _batched.checked(lambda T, Cp: slab_cadence(T, Cp, exchange_every), batch)
-    if pipelined:
-        raise ValueError(
-            "pipelined applies to the group cadences (fused_k or "
-            "exchange_every > 1); the per-step path has no group schedule."
-        )
-    one = _one_step(params, batch)
-
-    def multi_step(T, Cp):
-        for _ in range(nsteps):
-            T = one(T, Cp)
-        return T, Cp
-
-    return _batched.checked(multi_step, batch)
+    plain = _plain_update(params)
+    c3 = tuple(params.dt * params.lam / (d * d) for d in (params.dx, params.dy, params.dz))
+    return _fused.make_cadence(
+        "diffusion3d", params, nsteps, family="diffusion", kernel=fused_stencil, stagger=0,
+        launch=lambda ki, c, aux, tile, **subset: (
+            fused_diffusion_steps(c[0], aux[0], ki, *c3, tile=tile, **subset),),
+        advance=lambda c, aux: (update(c[0], aux[0]),),
+        plain=lambda c, aux: (plain(c[0], aux[0]),),
+        per_step=_one_step, read_only=1, fused_k=fused_k, fused_tile=fused_tile,
+        exchange_every=exchange_every, pipelined=pipelined, batch=batch, autotune=autotune,
+    )
 
 
 def run(nt: int, nx: int = 128, ny: int = 128, nz: int = 128, *,

@@ -43,10 +43,9 @@ import torch.distributed as dist
 
 from ..ops import fused_pt, temperature_update
 from ..ops.fused_pt import fused_pt_iterations
-from ..ops.halo import dim_has_halo_activity, needs_grad, require_deep_halo, update_halo
-from ..ops.overlap import fused_with_plain_grad, overlapped
+from ..ops.halo import update_halo
+from ..ops.overlap import _routed_update
 from ..parallel.grid import global_grid, init_global_grid
-from ..utils import profiling as _profiling
 from ..utils.fields import block_from_numpy, coord_fields, ones, zeros
 from ..utils.tools import nx_g, ny_g, nz_g
 from . import _batched, _common, _fused
@@ -180,7 +179,6 @@ def _pressure_update(params: Params):
     """Per-block pressure relaxation: all cells, from fresh fluxes (halo
     cells get overwritten by the ``Pf`` exchange)."""
     bp = params.beta_p
-    dx, dy, dz = params.dx, params.dy, params.dz
 
     def update(Pf, qDx, qDy, qDz):
         return Pf - bp * _divergence(qDx, qDy, qDz, params)
@@ -198,30 +196,6 @@ def _divergence(qDx, qDy, qDz, params: Params):
     )
 
 
-def _pt_iteration(params: Params, batch: bool = False, coalesce=None):
-    """One PT relaxation: flux update (+buoyancy) on interior faces,
-    pressure update at all cells, halo exchange of ``Pf`` alone (the fluxes'
-    interior faces are recomputed from post-exchange ``Pf`` each
-    iteration).  With ``params.hide_comm`` the ``Pf`` exchange overlaps the
-    interior pressure update (`hide_communication`).  ``batch``: of a
-    batch; ``coalesce`` as in `ops.halo.update_halo`."""
-    flux_update = _flux_update(params)
-    p_update = _pressure_update(params)
-    if params.hide_comm:
-        p_exchanged = overlapped(p_update, 1, None, lead=int(batch), coalesce=coalesce)
-    else:
-        halo = _batched.update_halo if batch else update_halo
-
-        def p_exchanged(*s):
-            return halo(p_update(*s), coalesce=coalesce)
-
-    def iteration(T, Pf, qDx, qDy, qDz):
-        qDx, qDy, qDz = flux_update(T, Pf, qDx, qDy, qDz)
-        return p_exchanged(Pf, qDx, qDy, qDz), qDx, qDy, qDz
-
-    return iteration
-
-
 def _temperature_update(params: Params):
     """Explicit upwind advection + diffusion of T (interior), frozen walls.
     Blocks or batches of them.
@@ -232,50 +206,56 @@ def _temperature_update(params: Params):
     backward (`ops.overlap.fused_with_plain_grad`).  The update is the
     profiler range ``igg_temperature_update`` while a capture is live."""
     coeffs = (params.lam_T, 1.0 / params.phi, params.dt, params.dx, params.dy, params.dz)
-
-    def fast(T, qDx, qDy, qDz):
-        return temperature_update.temperature_update(T, qDx, qDy, qDz, *coeffs)
-
-    def plain(T, qDx, qDy, qDz):
-        with _profiling.scope("igg_temperature_update"):
-            return temperature_update.temperature_update_reference(T, qDx, qDy, qDz, *coeffs)
-
-    with_grad = fused_with_plain_grad(lambda *f: (fast(*f),), lambda *f: (plain(*f),))
-
-    def update(T, qDx, qDy, qDz):
-        with _profiling.scope("igg_temperature_update"):
-            if needs_grad((T, qDx, qDy, qDz)):
-                return with_grad(T, qDx, qDy, qDz)[0]
-            return fast(T, qDx, qDy, qDz)
-
-    return update
+    return _routed_update(
+        lambda *f: temperature_update.temperature_update(*f, *coeffs),
+        lambda *f: temperature_update.temperature_update_reference(*f, *coeffs),
+        "igg_temperature_update",
+    )
 
 
-def _build_block_step(params: Params, batch: bool = False, coalesce=None):
-    """One whole time step at the per-iteration exchange cadence: ``npt``
-    PT iterations (each exchanging ``Pf``), the once-per-step 3-field flux
-    exchange (coalesced as ``coalesce`` says), then the T update and its
-    exchange."""
-    pt_iter = _pt_iteration(params, batch, coalesce)
-    t_update = _temperature_update(params)
+def _pt_iterations(params: Params, batch: bool = False, coalesce=None):
+    """The per-iteration cadence's PT loop ``(s, (T,)) -> s`` over ``s =
+    (Pf, qDx, qDy, qDz)``: ``npt`` relaxations, each the flux update
+    (+buoyancy) on interior faces, then the pressure update at all cells
+    and the exchange of ``Pf`` alone (the fluxes' interior faces are
+    recomputed from post-exchange ``Pf`` each iteration), overlapped with
+    ``params.hide_comm`` (`hide_communication`); then the once-per-step
+    3-field flux exchange.  ``batch``: of a batch; ``coalesce`` as in
+    `ops.halo.update_halo`."""
+    flux_update = _flux_update(params)
+    p_exchanged = _fused.exchanged(_pressure_update(params), params.hide_comm, batch, coalesce)
     halo = _batched.update_halo if batch else update_halo
 
-    def block_step(T, Pf, qDx, qDy, qDz):
+    def iterations(s, aux):
         for _ in range(params.npt):
-            Pf, qDx, qDy, qDz = pt_iter(T, Pf, qDx, qDy, qDz)
-        qDx, qDy, qDz = halo(qDx, qDy, qDz, coalesce=coalesce)
-        T = halo(t_update(T, qDx, qDy, qDz))
-        return T, Pf, qDx, qDy, qDz
+            qDx, qDy, qDz = flux_update(*aux, *s)
+            s = (p_exchanged(s[0], qDx, qDy, qDz), qDx, qDy, qDz)
+        return (s[0], *halo(*s[1:], coalesce=coalesce))
+
+    return iterations
+
+
+def _time_step(params: Params, iterations, halo):
+    """One time step ``(T, Pf, qDx, qDy, qDz) -> state``: ``iterations(s,
+    (T,))`` advances the PT fields ``s``, then the T update and, unless
+    ``halo`` is None, its exchange."""
+    t_update = _temperature_update(params)
+
+    def block_step(T, *s):
+        s = iterations(s, (T,))
+        T = t_update(T, *s[1:])
+        return (T if halo is None else halo(T), *s)
 
     return block_step
 
 
 def make_step(params: Params, *, batch: bool = False):
     """One time step: ``npt`` PT pressure iterations + the T update (see
-    `_build_block_step`).  ``batch=True``: the ensemble step over batched
+    `_pt_iterations`).  ``batch=True``: the ensemble step over batched
     fields (`models._batched`), member for member bit-identical to the
     unbatched step."""
-    return _batched.checked(_build_block_step(params, batch), batch)
+    halo = _batched.update_halo if batch else update_halo
+    return _batched.checked(_time_step(params, _pt_iterations(params, batch), halo), batch)
 
 
 def pipelined_support_error(shape, k, dtype=torch.float32, bx=None, by=None, gg=None,
@@ -365,161 +345,55 @@ def make_multi_step(
     the split is gated at ``k = w`` and its tile pinned for every chunk of
     a ragged schedule.
 
-    ``batch=True``: every cadence over batched fields (`models._batched`),
-    one kernel launch per chunk and one exchange per dimension for all B
-    members.  ``coalesce`` (None: ``IGG_COALESCE``, default on): every
-    multi-field exchange of the cadence sends one message per side and
-    dtype word width instead of one per field (`ops.halo.update_halo`),
-    bit-identical either way.
+    ``batch=True``, ``coalesce``: as in `models.acoustic3d.make_multi_step`
+    (one kernel launch per chunk for all B members).
 
-    ``autotune`` (None = ``IGG_AUTOTUNE`` env, default off): substitute the
-    cached winner config of this (backend, topology, model, local size,
-    dtype, batch) point into the kwargs above — searching (cost-model
-    pruned, short runs measured on the grid's device) and persisting it on
-    first use (`implicitglobalgrid_tpu_torch.tuning`).  A pure schedule
-    substitution: results stay those of the default config, bit for bit
-    wherever the two cadences round alike.  Explicitly-set kwargs always
-    win — autotune only fills fields left at their defaults.
+    ``autotune``: the tuner's cached winner config for the kwargs left at
+    their defaults, as in `models.diffusion3d.make_multi_step`.
 
     Differentiable on every cadence (`torch.autograd`); ``fused_k`` runs
     the kernel in the forward and the plain PT chunks in the backward
     (`models._fused`), with T an explicit input of every chunk, so dL/dT
     takes the buoyancy term's path through the PT iterations.
     """
-    from ..tuning.search import maybe_autotune
-
-    fused_k, fused_tile, exchange_every, pipelined, coalesce = maybe_autotune(
-        "porous_convection3d", params, nsteps, autotune, batch=batch,
-        fused_k=fused_k, fused_tile=fused_tile, exchange_every=exchange_every,
-        pipelined=pipelined, coalesce=coalesce,
-    )
-    bx, by = fused_tile if fused_tile is not None else (None, None)
-    if (bx is None) != (by is None):
-        raise ValueError(f"fused_tile={fused_tile}: pass both bx and by, or neither")
-    t_update = _temperature_update(params)
     flux_update = _flux_update(params)
     p_update = _pressure_update(params)
-    halo = _batched.update_halo if batch else update_halo
     npt = params.npt
-    gg = global_grid()
+    co = (params.theta_q, 1.0 / params.dx, 1.0 / params.dy, 1.0 / params.dz,
+          params.Ra * params.lam_T, params.beta_p)
 
-    def pt_iterate(T, s):
-        qDx, qDy, qDz = flux_update(T, *s)
+    def pt_iterate(s, aux):
+        qDx, qDy, qDz = flux_update(aux[0], *s)
         return p_update(s[0], qDx, qDy, qDz), qDx, qDy, qDz
 
-    def cadence_block_step(w, lead, chunks, run_chunks=None, active=True):
-        """One time step: ``lead`` per-iteration-exchanged iterations, then
-        the chunks (``run_chunks(T, s)``, or per chunk its plain iterations
-        and a width-``w`` exchange of the four PT fields), then the T
-        update."""
+    def schedule(w, fused):
+        lead, chunks = _pt_schedule(npt, w, even=fused)
+        if fused and not chunks:
+            raise ValueError(f"npt={npt} leaves no even kernel chunk for fused_k={w}")
+        return lead, chunks
 
-        def block_step(T, Pf, qDx, qDy, qDz):
-            s = (Pf, qDx, qDy, qDz)
-            for _ in range(lead):
-                s = pt_iterate(T, s)
-                if active:
-                    s = halo(*s, coalesce=coalesce)
-            if run_chunks is not None:
-                s = run_chunks(T, s)
-            for ki in chunks if run_chunks is None else ():
-                for _ in range(ki):
-                    s = pt_iterate(T, s)
-                if active:
-                    s = halo(*s, width=w, coalesce=coalesce)
-            T = t_update(T, *s[1:])
-            if active:
-                T = halo(T)
-            return (T, *s)
-
-        return block_step
-
-    if fused_k:
-        if params.hide_comm:
+    def frame(iterations, halo):
+        if nsteps > 64:
             raise ValueError(
-                "fused_k and hide_comm are mutually exclusive: the fused "
-                "kernel's slab exchange is already amortized over k "
-                "iterations; overlap scheduling applies to the per-iteration "
-                "XLA path."
+                f"nsteps={nsteps} would unroll {nsteps} whole time steps into one "
+                "program (the outer loop is unrolled by measurement — a nested "
+                "fori_loop costs ~35% on v5e); keep chunks <= 64 and call the "
+                "step function repeatedly instead"
             )
-        if exchange_every not in (1, fused_k):
-            raise ValueError(
-                f"fused_k={fused_k} already exchanges every fused_k PT "
-                f"iterations; exchange_every={exchange_every} conflicts."
-            )
-        require_deep_halo(fused_k, gg, what="fused_k")
-        lead, chunks = _pt_schedule(npt, fused_k)
-        if not chunks:
-            raise ValueError(
-                f"npt={npt} leaves no even kernel chunk for fused_k={fused_k}"
-            )
-        co = (params.theta_q, 1.0 / params.dx, 1.0 / params.dy, 1.0 / params.dz,
-              params.Ra * params.lam_T, params.beta_p)
-        w = fused_k
-        active = any(dim_has_halo_activity(gg, d) for d in range(3))
-        if pipelined and not active:
-            _fused.warn_pipelined_fallback(None, w, "no halo activity: nothing to overlap",
-                                           "porous")
+        return _time_step(params, iterations, halo)
 
-        # Gated at the worst case ki = w: every chunk exchanges at width w,
-        # and the gate's tile is pinned for every chunk (a shorter chunk
-        # keeps it legal: a smaller window).
-        run_groups = _fused.fused_groups(
-            fused_pt, "porous", chunks, k=w, width=w, pipelined=pipelined,
-            fused_tile=fused_tile, stagger=1, gg=gg, batch=batch, coalesce=coalesce,
-        )
-
-        def plain_chunk(ki, s, aux):
-            for _ in range(ki):
-                s = pt_iterate(aux[0], s)
-            return s
-
-        def run_chunks(T, s):
-            # T is the chunks' explicit input (aux), not a closure: the
-            # kernel reads it through the buoyancy term, and autograd must
-            # see it to carry dL/dT through the PT iterations.
-            return run_groups(
-                lambda ki, c, aux, tile, **subset: fused_pt_iterations(
-                    aux[0], *c, ki, *co, tile=tile, **subset),
-                plain_chunk, s, (T,),
-            )
-
-        block_step = cadence_block_step(w, lead, chunks, run_chunks, active)
-    elif exchange_every < 1:
-        raise ValueError(f"exchange_every must be >= 1 (got {exchange_every})")
-    elif exchange_every > 1:
-        if params.hide_comm:
-            raise ValueError(
-                "exchange_every and hide_comm are mutually exclusive: overlap "
-                "scheduling hides the per-iteration exchange; a slab cadence "
-                "replaces it."
-            )
-        require_deep_halo(exchange_every)
-        block_step = cadence_block_step(
-            exchange_every, *_pt_schedule(npt, exchange_every, even=False)
-        )
-    else:
-        if pipelined:
-            raise ValueError(
-                "pipelined applies to the group cadences (fused_k or "
-                "exchange_every > 1); the per-iteration path has no group "
-                "schedule."
-            )
-        block_step = _build_block_step(params, batch, coalesce)
-
-    if nsteps > 64:
-        raise ValueError(
-            f"nsteps={nsteps} would unroll {nsteps} whole time steps into one "
-            "program (the outer loop is unrolled by measurement — a nested "
-            "fori_loop costs ~35% on v5e); keep chunks <= 64 and call the "
-            "step function repeatedly instead"
-        )
-
-    def multi(*s):
-        for _ in range(nsteps):
-            s = block_step(*s)
-        return s
-
-    return _batched.checked(multi, batch)
+    # T is the chunks' explicit input (aux), not a closure: the kernel reads
+    # it through the buoyancy term, and autograd must see it to carry dL/dT
+    # through the PT iterations.
+    return _fused.make_cadence(
+        "porous_convection3d", params, nsteps, family="porous", kernel=fused_pt, stagger=1,
+        launch=lambda ki, c, aux, tile, **subset: fused_pt_iterations(
+            aux[0], *c, ki, *co, tile=tile, **subset),
+        advance=pt_iterate, per_step=_pt_iterations, schedule=schedule, frame=frame,
+        unit=("iteration", "PT iterations"), fused_k=fused_k, fused_tile=fused_tile,
+        exchange_every=exchange_every, pipelined=pipelined, batch=batch, coalesce=coalesce,
+        autotune=autotune,
+    )
 
 
 def run(nt: int, nx: int = 32, ny: int = 32, nz: int = 32, *,

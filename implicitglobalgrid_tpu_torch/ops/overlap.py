@@ -37,6 +37,7 @@ import torch
 
 from ..parallel import grid as _grid
 from ..parallel.topology import NDIMS
+from ..utils import profiling as _profiling
 from . import halo as _halo
 
 #: Valid tile-subset selectors: "all", or ring/mid over the split dims —
@@ -351,6 +352,27 @@ def fused_with_plain_grad(fast, plain):
     functions close over is a constant to autograd.
     """
     return lambda *inputs: _PlainGrad.apply(fast, plain, *inputs)
+
+
+def _routed_update(fast, plain, name: str):
+    """A model's per-step update on a hand-written kernel: ``fast(*fields)``
+    (the kernel's wrapper) inside the profiler range ``name``; under
+    autograd (`ops.halo.needs_grad`) the same forward with ``plain``'s
+    gradient (`fused_with_plain_grad`), its backward recomputing ``plain``
+    inside the range too."""
+    def scoped_plain(*fields):
+        with _profiling.scope(name):
+            return (plain(*fields),)
+
+    with_grad = fused_with_plain_grad(lambda *f: (fast(*f),), scoped_plain)
+
+    def update(*fields):
+        with _profiling.scope(name):
+            if _halo.needs_grad(fields):
+                return with_grad(*fields)[0]
+            return fast(*fields)
+
+    return update
 
 
 def _halo_dims(shapes, gg) -> list[int]:
